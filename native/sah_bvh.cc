@@ -1,4 +1,4 @@
-// Binned-SAH BVH builder — the native runtime component of tpu-pathtracer.
+// Binned-SAH BVH builder — the native runtime component of the path tracer.
 //
 // Role: the reference delegates acceleration-structure construction to Apple's
 // closed-source native library (MPSTriangleAccelerationStructure.rebuild,
@@ -10,7 +10,7 @@
 // pass consumes, so LBVH (jittable, device) and SAH (native, host) builders
 // are interchangeable.
 //
-// Build: see native/Makefile (g++ -O3 -shared).
+// Build: accel/native.py compiles it on first use (g++ -O3 -shared).
 
 #include <algorithm>
 #include <cfloat>
@@ -193,7 +193,7 @@ extern "C" {
 // 2T-1 nodes): node child/leaf arrays, component-major bounds (3 planes of M),
 // and the triangle permutation.  Returns the node count M (root is node 0),
 // or -1 on error.
-int32_t tpupt_build_sah(
+int32_t pt_build_sah(
     const float* p0x, const float* p0y, const float* p0z,
     const float* p1x, const float* p1y, const float* p1z,
     const float* p2x, const float* p2y, const float* p2z,

@@ -2,13 +2,13 @@
 the live HTTP viewer, with the HUD stats polled and archived.
 
 The reference is a LIVE app (120 fps target at half-res,
-reference: renderer/Renderer.mm:97); the TPU-honest analog is the viewer's
+reference: renderer/Renderer.mm:97); the headless analog is the viewer's
 progressive loop at a preview resolution.  This script starts the viewer
 on a background thread, polls /stats.json while frames accumulate, writes
 the last sample (plus the fps trajectory) to renders/interactive_stats.json,
 and prints the steady-state fps.
 
-Usage (TPU; ~2-4 min of which most is the first compile):
+Usage (on a GPU; most of the time is the first compile):
     timeout 900 python scripts/interactive_demo.py \
         [--width 640 --height 360 --depth 8 --frames 40]
 """
@@ -26,14 +26,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/tpu_pt_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-if os.environ.get("JAX_PLATFORMS"):
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
+from pathtracer.utils.compile_cache import enable_compile_cache  # noqa: E402
 
-from tpu_pathtracer.config import RenderConfig  # noqa: E402
-from tpu_pathtracer.renderer import Renderer  # noqa: E402
-from tpu_pathtracer.viewer import ViewerServer  # noqa: E402
+enable_compile_cache()
+
+from pathtracer.config import RenderConfig  # noqa: E402
+from pathtracer.renderer import Renderer  # noqa: E402
+from pathtracer.viewer import ViewerServer  # noqa: E402
 
 
 def main():

@@ -3,13 +3,13 @@
 The Mitsuba goldens for the Water scenes encode *different materials* than the
 reference's MTL channel hack, so the Mitsuba gates are wide bounds rather than
 parity proofs.  These self-goldens close that loophole: the BRUTE intersector
-(dense Moller-Trumbore over every triangle — no BVH, no Pallas) renders a
+(dense Moller-Trumbore over every triangle -- no BVH) renders a
 fixed deterministic configuration (seed 0, 16 frames, 200x150, depth 8), and
 tests/test_render_golden.py re-renders the SAME configuration through the
 production BVH path and gates rel_mse exactly — identical noise on both sides,
 so any disagreement is an intersection bug, not estimator variance.
 
-Run on TPU (brute at this size is seconds there):
+Run on a GPU (brute at this size is seconds there):
     timeout 1200 python scripts/make_self_goldens.py
 """
 
@@ -20,17 +20,16 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
+from pathtracer.utils.compile_cache import enable_compile_cache  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/tests/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+enable_compile_cache()
 
 import numpy as np  # noqa: E402
 
-from tpu_pathtracer.config import RenderConfig  # noqa: E402
-from tpu_pathtracer.io.exr import write_exr  # noqa: E402
-from tpu_pathtracer.render import init_state, render_frame_jit  # noqa: E402
-from tpu_pathtracer.scene import load_scene, scene_path  # noqa: E402
+from pathtracer.config import RenderConfig  # noqa: E402
+from pathtracer.io.exr import write_exr  # noqa: E402
+from pathtracer.render import init_state, render_frame_jit  # noqa: E402
+from pathtracer.scene import load_scene, scene_path  # noqa: E402
 
 H, W = 150, 200
 FRAMES = 16

@@ -5,7 +5,7 @@ than rel_mse ~0.16 at ANY depth pairing while mean ratios stay near 1 —
 a high-frequency, energy-neutral mismatch.  Hypothesis: the goldens'
 water-surface geometry (shapeIndex 8 of the Mitsuba .serialized) differs
 from the OBJ's wavy mesh, so the MIRRORED reflections disagree per-pixel.
-This script renders ours (depth 3, quirks off, spp256 CPU/TPU) and
+This script renders ours (depth 3, quirks off, spp256 CPU/GPU) and
 prints a coarse 5x5 grid of per-cell rel-MSE vs the golden plus the
 row-means, so the error's spatial home is measurable.
 
@@ -18,20 +18,17 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
+from pathtracer.utils.compile_cache import enable_compile_cache  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/tpu_pt_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-if os.environ.get("JAX_PLATFORMS"):
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
+enable_compile_cache()
 
 import numpy as np  # noqa: E402
 
-from tpu_pathtracer.config import RenderConfig  # noqa: E402
-from tpu_pathtracer.io.exr import read_exr  # noqa: E402
-from tpu_pathtracer.render import init_state, render_frame_jit  # noqa: E402
-from tpu_pathtracer.scene import golden_path, load_scene, scene_path  # noqa: E402
-from tpu_pathtracer.utils.compare import downsample, golden_mask  # noqa: E402
+from pathtracer.config import RenderConfig  # noqa: E402
+from pathtracer.io.exr import read_exr  # noqa: E402
+from pathtracer.render import init_state, render_frame_jit  # noqa: E402
+from pathtracer.scene import golden_path, load_scene, scene_path  # noqa: E402
+from pathtracer.utils.compare import downsample, golden_mask  # noqa: E402
 
 H, W = 75, 100
 

@@ -26,15 +26,17 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/root/repo/tests/.jax_cache")
+from pathtracer.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import numpy as np  # noqa: E402
 
-from tpu_pathtracer.config import RenderConfig  # noqa: E402
-from tpu_pathtracer.io.exr import read_exr  # noqa: E402
-from tpu_pathtracer.render import init_state, render_frame_jit  # noqa: E402
-from tpu_pathtracer.scene import golden_path, load_scene, scene_path  # noqa: E402
-from tpu_pathtracer.utils.compare import downsample, metrics  # noqa: E402
+from pathtracer.config import RenderConfig  # noqa: E402
+from pathtracer.io.exr import read_exr  # noqa: E402
+from pathtracer.render import init_state, render_frame_jit  # noqa: E402
+from pathtracer.scene import golden_path, load_scene, scene_path  # noqa: E402
+from pathtracer.utils.compare import downsample, metrics  # noqa: E402
 
 H, W = 75, 100
 

@@ -1,4 +1,4 @@
-"""Mitsuba-parity probe round 2: high-spp on the TPU.
+"""Mitsuba-parity probe round 2: high-spp on the accelerator.
 
 Follow-ups to scripts/mitsuba_parity_probe.py (CPU, spp48), which
 recovered the Water-plastic golden's material table (XML assignments at
@@ -14,7 +14,7 @@ Mitsuba's default diffuseReflectance 0.5 -> rel_mse 0.0068):
      rel_mse falls with spp (-> noise), the CPU test band is honest; if it
      plateaus (-> bias), there is a real estimator delta worth hunting.
 
-Runs the production TPU pipeline at golden comparison size (75x100 via
+Runs the production pipeline at golden comparison size (75x100 via
 downsampled 800x600?  No: render AT 75x100 directly, matching the CPU
 tests' geometry so numbers are comparable).
 
@@ -30,19 +30,18 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/tpu_pt_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-if os.environ.get("JAX_PLATFORMS"):
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
+from pathtracer.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from tpu_pathtracer.config import RenderConfig  # noqa: E402
-from tpu_pathtracer.io.exr import read_exr  # noqa: E402
-from tpu_pathtracer.render import init_state, render_frame_jit  # noqa: E402
-from tpu_pathtracer.scene import golden_path, load_scene, scene_path  # noqa: E402
-from tpu_pathtracer.utils.compare import downsample, metrics  # noqa: E402
+from pathtracer.config import RenderConfig  # noqa: E402
+from pathtracer.io.exr import read_exr  # noqa: E402
+from pathtracer.render import init_state, render_frame_jit  # noqa: E402
+from pathtracer.scene import golden_path, load_scene, scene_path  # noqa: E402
+from pathtracer.utils.compare import downsample, metrics  # noqa: E402
 
 H, W = 75, 100
 

@@ -1,89 +1,166 @@
-"""Per-HLO-op attribution of the real frame via jax.profiler + xprof.
+"""Where the frame's device time goes: trace a few frame steps of the
+renderer with jax.profiler and rank the device's ops by their total time.
 
-Runs N profiled frame steps, converts the captured xplane with the
-tensorboard_plugin_profile "hlo_stats" tool, and prints the top ops by
-self time — the ground-truth complement to the ablation estimates in
-perf_ablate.py (no monkeypatching, the production frame as-is).
+    python scripts/perf_profile.py                     # 1080p headline, 3 frames
+    python scripts/perf_profile.py --trace-dir DIR --parse-only
+
+Reads the Perfetto JSON that jax.profiler writes beside its xplane, so it
+needs no package beyond JAX.  On a GPU it ranks the kernels on the device's
+streams and reports how busy the device was over the traced frames; on the
+CPU, which has no device process in the trace, it ranks the XLA threads'
+ops instead.  The production frame runs as is: nothing is patched.
 """
+
 from __future__ import annotations
 
 import argparse
+import collections
 import glob
+import gzip
 import json
 import os
+import re
 import sys
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
-import jax
+# Coarse classes of the frame's ops, first match wins (Pallas names the
+# traversal kernel after its pallas_call, ops/bvh_kernel.py).
+CLASSES = (
+    ("traversal kernel", r"bvh_traverse"),
+    ("sort", r"sort"),
+    ("gather/scatter", r"gather|scatter|dynamic.?slice|dynamic.?update"),
+    ("copy/memset", r"memcpy|memset|copy"),
+)
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/tests/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-if os.environ.get("JAX_PLATFORMS"):
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
 
-from tpu_pathtracer.config import RenderConfig  # noqa: E402
-from tpu_pathtracer.renderer import Renderer  # noqa: E402
-
-
-def top_ops(trace_dir: str, limit: int, tool: str = "hlo_stats"):
-    """Parse the newest xplane.pb under trace_dir -> [(self_us, name), ...]."""
-    from xprof.convert import raw_to_tool_data
-
-    paths = sorted(glob.glob(
-        os.path.join(trace_dir, "**", "*.xplane.pb"), recursive=True),
+def load_trace(trace_dir: str) -> list[dict]:
+    """The events of the newest perfetto_trace.json.gz under trace_dir."""
+    paths = sorted(glob.glob(os.path.join(
+        trace_dir, "**", "perfetto_trace.json.gz"), recursive=True),
         key=os.path.getmtime)
     if not paths:
-        raise FileNotFoundError(f"no xplane.pb under {trace_dir}")
-    data, _ = raw_to_tool_data.xspace_to_tool_data([paths[-1]], tool, {})
-    table = json.loads(data) if isinstance(data, (str, bytes)) else data
-    # gviz table: cols give labels, rows the values
-    cols = [c["label"] for c in table["cols"]]
-    i_name = next(i for i, c in enumerate(cols) if "HLO op name" in c or c == "program_id")
-    try:
-        i_self = next(i for i, c in enumerate(cols) if "Total self time (us)" in c)
-    except StopIteration:
-        i_self = next(i for i, c in enumerate(cols) if "self time" in c.lower())
-    i_cat = next((i for i, c in enumerate(cols) if "category" in c.lower()), None)
-    rows = []
-    for r in table["rows"]:
-        vals = [c["v"] for c in r["c"]]
-        cat = vals[i_cat] if i_cat is not None else ""
-        rows.append((float(vals[i_self] or 0), str(vals[i_name]), str(cat)))
-    rows.sort(reverse=True)
-    return rows[:limit], sum(r[0] for r in rows)
+        raise FileNotFoundError(f"no perfetto_trace.json.gz under {trace_dir}")
+    with gzip.open(paths[-1]) as f:
+        trace = json.load(f)
+    return trace["traceEvents"] if isinstance(trace, dict) else trace
 
 
-def main():
-    ap = argparse.ArgumentParser()
+def device_ops(events: list[dict]) -> tuple[list[dict], str]:
+    """The complete ('X') events that ran on a device, and where from: the
+    '/device:...' processes when the trace has any, else the host's XLA
+    threads (a CPU run)."""
+    procs, threads = {}, {}
+    for e in events:
+        if e.get("ph") == "M" and e.get("name") == "process_name":
+            procs[e["pid"]] = e["args"]["name"]
+        elif e.get("ph") == "M" and e.get("name") == "thread_name":
+            threads[(e["pid"], e["tid"])] = e["args"]["name"]
+    spans = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    dev = {p for p, n in procs.items() if n.startswith("/device:")}
+    if dev:
+        # the kernels run on the 'Stream' threads; other threads of a device
+        # process re-list the same time per XLA op or module
+        streams = {k for k, n in threads.items()
+                   if k[0] in dev and n.startswith("Stream")}
+        return ([e for e in spans if e["pid"] in dev
+                 and (not streams or (e["pid"], e["tid"]) in streams)],
+                "device streams")
+    xla = {k for k, n in threads.items() if n.startswith("tf_XLA")}
+    return ([e for e in spans if (e["pid"], e["tid"]) in xla],
+            "host XLA threads (no device in the trace)")
+
+
+def busy_time(ops: list[dict]) -> tuple[float, float]:
+    """(busy, span) in microseconds: the union of the ops' intervals, and
+    the time from the first op's start to the last op's end."""
+    if not ops:
+        return 0.0, 0.0
+    ivs = sorted((e["ts"], e["ts"] + e["dur"]) for e in ops)
+    busy, (cur0, cur1) = 0.0, ivs[0]
+    for a, b in ivs[1:]:
+        if a > cur1:
+            busy += cur1 - cur0
+            cur0, cur1 = a, b
+        else:
+            cur1 = max(cur1, b)
+    busy += cur1 - cur0
+    return busy, max(b for _, b in ivs) - ivs[0][0]
+
+
+def classify(name: str) -> str:
+    for label, pattern in CLASSES:
+        if re.search(pattern, name, re.IGNORECASE):
+            return label
+    return "other"
+
+
+def summarize(ops: list[dict]) -> dict:
+    """Total microseconds and counts per op name and per class."""
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    by_class = collections.defaultdict(float)
+    for e in ops:
+        by_name[e["name"]][0] += e["dur"]
+        by_name[e["name"]][1] += 1
+        by_class[classify(e["name"])] += e["dur"]
+    busy, span = busy_time(ops)
+    return {"by_name": dict(by_name), "by_class": dict(by_class),
+            "busy_us": busy, "span_us": span}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", default="CornellBox-Water-plastic")
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--height", type=int, default=1080)
-    ap.add_argument("--frames", type=int, default=2)
-    ap.add_argument("--limit", type=int, default=40)
-    ap.add_argument("--trace-dir", default="/tmp/pt_trace")
+    ap.add_argument("--depth", type=int, default=8)
+    ap.add_argument("--frames", type=int, default=3)
+    ap.add_argument("--limit", type=int, default=30)
+    ap.add_argument("--trace-dir", default=os.path.join(ROOT, "out", "trace"))
     ap.add_argument("--parse-only", action="store_true",
                     help="skip rendering; parse an existing trace dir")
-    ap.add_argument("--tool", default="hlo_stats",
-                    help="xprof tool table (hlo_stats, framework_op_stats)")
     args = ap.parse_args()
 
     if not args.parse_only:
-        cfg = RenderConfig(samples_per_frame=1, frames_in_flight=1)
-        r = Renderer(args.scene, width=args.width, height=args.height, cfg=cfg)
-        r.step(); r.sync()          # compile outside the trace
-        t0 = time.perf_counter()
-        r.profile(args.trace_dir, frames=args.frames)
-        print(f"traced {args.frames} frames in "
-              f"{time.perf_counter()-t0:.1f} s", flush=True)
+        import jax
 
-    rows, total = top_ops(args.trace_dir, args.limit, args.tool)
-    print(f"{'self us':>12}  {'% of listed':>10}  category / op")
-    for self_us, name, cat in rows:
-        print(f"{self_us:12.0f}  {100*self_us/max(total,1e-9):9.2f}%  "
-              f"[{cat}] {name[:110]}")
-    print(f"total listed: {total/1e3:.1f} ms")
+        from pathtracer.config import RenderConfig
+        from pathtracer.renderer import Renderer
+        from pathtracer.utils.compile_cache import enable_compile_cache
+
+        enable_compile_cache()
+        cfg = RenderConfig(samples_per_frame=1, max_path_length=args.depth,
+                           frames_in_flight=1)
+        r = Renderer(args.scene, width=args.width, height=args.height, cfg=cfg)
+        r.run(1)  # compile outside the trace
+        t0 = time.perf_counter()
+        with jax.profiler.trace(args.trace_dir, create_perfetto_trace=True):
+            r.run(args.frames)
+        wall = time.perf_counter() - t0
+        print(f"traced {args.frames} frames of {args.scene} at "
+              f"{args.width}x{args.height} on {jax.devices()[0].device_kind} "
+              f"in {wall:.3f} s (host clock, profiler on)", flush=True)
+
+    ops, source = device_ops(load_trace(args.trace_dir))
+    s = summarize(ops)
+    total = sum(us for us, _ in s["by_name"].values())
+    per_frame = 1e-3 / max(args.frames, 1)
+    print(f"ops from {source}: {len(ops)} events, summed time "
+          f"{total * per_frame:.3f} ms/frame")
+    if s["span_us"]:
+        print(f"busy {s['busy_us'] * per_frame:.3f} ms/frame of a "
+              f"{s['span_us'] * per_frame:.3f} ms/frame span "
+              f"(idle share {1 - s['busy_us'] / s['span_us']:.4f})")
+    print(f"{'ms/frame':>10}  {'share':>7}  class")
+    for label, us in sorted(s["by_class"].items(), key=lambda kv: -kv[1]):
+        print(f"{us * per_frame:10.3f}  {us / max(total, 1e-9):7.2%}  {label}")
+    print(f"{'ms/frame':>10}  {'share':>7}  {'calls':>6}  op")
+    top = sorted(s["by_name"].items(), key=lambda kv: -kv[1][0])[:args.limit]
+    for name, (us, n) in top:
+        print(f"{us * per_frame:10.3f}  {us / max(total, 1e-9):7.2%}  "
+              f"{n:6d}  {name[:100]}")
 
 
 if __name__ == "__main__":

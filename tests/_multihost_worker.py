@@ -40,22 +40,23 @@ def main() -> None:
     import numpy as np
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from tpu_pathtracer.config import RenderConfig
-    from tpu_pathtracer.parallel.multihost import (
+    from pathtracer.config import RenderConfig
+    from pathtracer.parallel.multihost import (
         gather_image,
         make_multihost_mesh,
     )
-    from tpu_pathtracer.parallel.tiles import (
+    from pathtracer.parallel.tiles import (
         render_frame_distributed_jit,
         shard_state,
     )
-    from tpu_pathtracer.render import init_state, render_frame
-    from tpu_pathtracer.render.state import RenderState
-    from tpu_pathtracer.scene import load_scene, scene_path
+    from pathtracer.render import init_state, render_frame
+    from pathtracer.render.state import RenderState
+    from pathtracer.scene import load_scene, scene_path
 
     mesh = make_multihost_mesh(n_spp=2)
     assert mesh.shape == {"tiles": 4, "spp": 2}
-    # every 'spp' psum group must sit within one process (ICI, not DCN)
+    # every 'spp' psum group must sit within one process (NVLink, not the
+    # host network)
     for row in mesh.devices:
         assert len({d.process_index for d in row}) == 1
 

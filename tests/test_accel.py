@@ -1,4 +1,6 @@
-"""LBVH build + traversal correctness vs the brute-force oracle."""
+"""BVH build + traversal correctness: the XLA walker and the GPU traversal
+kernel (Pallas, Triton route, run here in interpret mode) against the
+brute-force oracle and against each other."""
 
 import os
 
@@ -7,10 +9,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpu_pathtracer.accel import build_layout
-from tpu_pathtracer.ops.intersect import intersect_brute
-from tpu_pathtracer.ops.traverse import intersect_bvh
-from tpu_pathtracer.scene import load_scene, scene_path
+from pathtracer.accel import build_layout
+from pathtracer.ops.intersect import intersect_brute
+from pathtracer.ops.traverse import intersect_bvh
+from pathtracer.scene import load_scene, scene_path
 
 
 def _random_rays(n, key=1):
@@ -43,11 +45,16 @@ def test_layout_invariants(scene_and_layout):
     assert sorted(spans) == list(range(lay.num_tris))
     # sorted_to_orig is a permutation
     assert sorted(np.asarray(lay.sorted_to_orig)) == list(range(lay.num_tris))
-    # packed meta decodes to the component-major copies
-    meta = np.asarray(lay.nodes_meta)
-    assert (meta[:, 0] == miss).all()
-    assert ((meta[:, 1] & 63) == counts).all()
-    assert ((meta[:, 1] >> 6)[leaf] == first[leaf]).all()
+    # the node rows' packed int fields decode to the component-major copies
+    packed = np.asarray(lay.nodes)[:, 6:8].view(np.int32)
+    assert (packed[:, 0] == miss).all()
+    assert ((packed[:, 1] & 63) == counts).all()
+    assert ((packed[:, 1] >> 6)[leaf] == first[leaf]).all()
+    # triangle rows hold p0 and the two edges of the sorted triangles
+    tris = np.asarray(lay.tris)
+    np.testing.assert_array_equal(tris[:, 0:3], np.asarray(lay.p0).T)
+    np.testing.assert_array_equal(
+        tris[:, 3:6], (np.asarray(lay.p1) - np.asarray(lay.p0)).T)
 
 
 def test_traversal_matches_brute(scene_and_layout):
@@ -75,547 +82,127 @@ def test_traversal_active_mask(scene_and_layout):
     np.testing.assert_allclose(tm[0::2], tv[0::2], rtol=1e-5)
 
 
-def test_pallas_interpret_matches(scene_and_layout):
-    """Run the Pallas kernel in interpreter mode (CPU) against the oracle."""
-    from tpu_pathtracer.ops import pallas_traverse as pt
+# ---------------------------------------------------------------------------
+# The GPU traversal kernel (ops/bvh_kernel.py), in Pallas interpret mode.
+# Every case is parametrised over the five bundled scenes and stays at or
+# below 4,096 lanes.
+# ---------------------------------------------------------------------------
 
-    scene, lay = scene_and_layout
-    o, d = _random_rays(256, key=5)
-    import functools
+from pathtracer.ops.bvh_kernel import BLOCK, intersect_bvh_kernel  # noqa: E402
+from pathtracer.scene.assets import SCENE_NAMES  # noqa: E402
 
-    import jax.experimental.pallas as pl
 
-    # monkey-less: call pallas in interpret mode via the module's entry with
-    # a tiny tile by running under force-interpret
-    from jax.experimental.pallas import tpu as pltpu
+@pytest.fixture(scope="module", params=SCENE_NAMES)
+def kscene(request):
+    scene = load_scene(scene_path(request.param))
+    return scene, build_layout(scene, leaf_size=8)
 
-    with pltpu.force_tpu_interpret_mode():
-        hs = pt.intersect_bvh_pallas(o, d, lay, tile=128)
-    hb = intersect_brute(o, d, scene.p0, scene.p1, scene.p2)
-    tb, tp_ = np.asarray(hb.t), np.asarray(hs.t)
-    assert (np.isfinite(tb) == np.isfinite(tp_)).all()
+
+def _kernel(o, d, lay, **kw):
+    return intersect_bvh_kernel(o, d, lay, interpret=True, **kw)
+
+
+def _same_hits(a, b):
+    """Kernel and walker walk the same tree in the same order: identical
+    hit sets and triangles; distances equal up to the two compilers'
+    different fma contraction of the same Moller-Trumbore arithmetic."""
+    ta, tb = np.asarray(a.t), np.asarray(b.t)
+    np.testing.assert_array_equal(np.isfinite(ta), np.isfinite(tb))
+    hit = np.isfinite(ta)
+    np.testing.assert_array_equal(np.asarray(a.tri)[hit], np.asarray(b.tri)[hit])
+    np.testing.assert_allclose(ta[hit], tb[hit], rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(np.asarray(a.u)[hit], np.asarray(b.u)[hit],
+                               atol=1e-5)
+
+
+def _agrees_with_brute(h, hb):
+    th, tb = np.asarray(h.t), np.asarray(hb.t)
+    np.testing.assert_array_equal(np.isfinite(th), np.isfinite(tb))
     both = np.isfinite(tb)
-    np.testing.assert_allclose(tb[both], tp_[both], rtol=1e-4)
-    # shading payload: position equals o + t*d
-    pos = np.asarray(hs.pos)[:, both]
-    expect = np.asarray(o)[:, both] + tb[both] * np.asarray(d)[:, both]
-    np.testing.assert_allclose(pos, expect, atol=1e-3)
-    # unit normals
-    nrm = np.asarray(hs.normal)[:, both]
-    np.testing.assert_allclose(np.linalg.norm(nrm, axis=0), 1.0, atol=1e-3)
-    # material/light ids match the scene tables
-    tri = np.asarray(hs.tri)[both]
-    assert (np.asarray(hs.mat)[both] == np.asarray(scene.material_id)[tri]).all()
-    assert (np.asarray(hs.light)[both] == np.asarray(scene.light_index)[tri]).all()
+    np.testing.assert_allclose(th[both], tb[both], rtol=1e-4, atol=1e-6)
+    # triangle ids agree except coplanar shared-edge ties (equal t)
+    assert (np.asarray(h.tri)[both] == np.asarray(hb.tri)[both]).mean() > 0.98
 
 
-def test_pallas_window_matches_v1(scene_and_layout):
-    """The production window-walk kernel (v2) must agree with the v1 kernel
-    bit-for-bit in interpreter mode, for both latch modes."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from tpu_pathtracer.ops import pallas_traverse as pt
-
-    scene, lay = scene_and_layout
-    o, d = _random_rays(256, key=9)
-    with pltpu.force_tpu_interpret_mode():
-        h1 = pt.intersect_bvh_pallas(o, d, lay, tile=128)
-        hw_a = pt.intersect_bvh_window(
-            o, d, lay, tile=128, latch="argmin", tritest="mt"
-        )
-        hw_r = pt.intersect_bvh_window(
-            o, d, lay, tile=128, latch="rows", tritest="mt"
-        )
-    for hw in (hw_a, hw_r):
-        # same hits; t/u may differ in the last ulp (the v1 kernel evaluates
-        # MT as broadcast scalar ops, the window kernel as (K, TILE) blocks —
-        # different FMA contraction)
-        t1, tw = np.asarray(h1.t), np.asarray(hw.t)
-        assert (np.isfinite(t1) == np.isfinite(tw)).all()
-        both = np.isfinite(t1)
-        np.testing.assert_allclose(t1[both], tw[both], rtol=1e-6)
-        np.testing.assert_array_equal(
-            np.asarray(h1.tri)[both], np.asarray(hw.tri)[both]
-        )
-        np.testing.assert_allclose(
-            np.asarray(h1.u)[both], np.asarray(hw.u)[both], atol=1e-5
-        )
-        np.testing.assert_allclose(
-            np.asarray(h1.pos)[:, both], np.asarray(hw.pos)[:, both], atol=1e-5
-        )
-        np.testing.assert_array_equal(
-            np.asarray(h1.mat)[both], np.asarray(hw.mat)[both]
-        )
-    # the two latch modes pick identical triangles; t may differ in the last
-    # ulp (different latch code -> different XLA fusion/FMA contraction)
-    np.testing.assert_allclose(
-        np.asarray(hw_a.t), np.asarray(hw_r.t), rtol=1e-6
-    )
-    np.testing.assert_array_equal(np.asarray(hw_a.tri), np.asarray(hw_r.tri))
+def test_kernel_nearest_hit(kscene):
+    scene, lay = kscene
+    o, d = _random_rays(4096, key=5)
+    hk = _kernel(o, d, lay)
+    _agrees_with_brute(hk, intersect_brute(o, d, scene.p0, scene.p1, scene.p2))
+    _same_hits(hk, intersect_bvh(o, d, lay))
 
 
-def test_pallas_window_bw_matches_oracle(scene_and_layout):
-    """The production Baldwin-Weber row test must find the same nearest hits
-    as the brute oracle (t to float tolerance; tri picks may differ only on
-    coplanar shared-edge ties, where t is equal either way)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from tpu_pathtracer.ops import pallas_traverse as pt
-
-    scene, lay = scene_and_layout
-    o, d = _random_rays(512, key=29)
-    with pltpu.force_tpu_interpret_mode():
-        hw = pt.intersect_bvh_window(o, d, lay, tile=128, tritest="bw")
-    hb = intersect_brute(o, d, scene.p0, scene.p1, scene.p2)
-    tb, tw = np.asarray(hb.t), np.asarray(hw.t)
-    assert (np.isfinite(tb) == np.isfinite(tw)).all()
-    both = np.isfinite(tb)
-    np.testing.assert_allclose(tb[both], tw[both], rtol=1e-4)
-    assert (np.asarray(hb.tri)[both] == np.asarray(hw.tri)[both]).mean() > 0.98
-    # payload sanity: position equals o + t*d, unit normals
-    pos = np.asarray(hw.pos)[:, both]
-    expect = np.asarray(o)[:, both] + tw[both] * np.asarray(d)[:, both]
-    np.testing.assert_allclose(pos, expect, atol=2e-3)
-    nrm = np.asarray(hw.normal)[:, both]
-    np.testing.assert_allclose(np.linalg.norm(nrm, axis=0), 1.0, atol=1e-3)
-
-
-def test_pallas_window_block_widths(scene_and_layout):
-    """MT block width and window width are pure execution-order knobs:
-    results must equal the baseline window kernel bit-for-bit."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from tpu_pathtracer.ops import pallas_traverse as pt
-
-    scene, lay = scene_and_layout
-    o, d = _random_rays(256, key=13)
-    with pltpu.force_tpu_interpret_mode():
-        h0 = pt.intersect_bvh_window(o, d, lay, tile=128)
-        variants = [
-            pt.intersect_bvh_window(o, d, lay, tile=128, mtblock=32),
-            pt.intersect_bvh_window(o, d, lay, tile=128, mtblock=64),
-            pt.intersect_bvh_window(
-                o, d, lay, tile=128, window=32, mtblock=32, chain=8
-            ),
-        ]
-    for hv in variants:
-        np.testing.assert_array_equal(np.asarray(h0.t), np.asarray(hv.t))
-        np.testing.assert_array_equal(np.asarray(h0.tri), np.asarray(hv.tri))
-        np.testing.assert_array_equal(np.asarray(h0.u), np.asarray(hv.u))
-        np.testing.assert_array_equal(
-            np.asarray(h0.normal), np.asarray(hv.normal)
-        )
-
-
-def test_pallas_window_hbm_matches_vmem(scene_and_layout):
-    """The HBM-streaming window kernel (triangle table in pltpu.ANY, MT
-    blocks DMA'd through double-buffered scratch) is a pure memory-placement
-    change: results must equal the VMEM-resident window kernel bit-for-bit,
-    for nearest-hit and t_max-capped queries."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from tpu_pathtracer.ops import pallas_traverse as pt
-
-    scene, lay = scene_and_layout
-    o, d = _random_rays(256, key=17)
-    cap = jnp.full((256,), 2.0)
-    with pltpu.force_tpu_interpret_mode():
-        h0 = pt.intersect_bvh_window(o, d, lay, tile=128)
-        h1 = pt.intersect_bvh_window(o, d, lay, tile=128, hbm=True)
-        c0 = pt.intersect_bvh_window(
-            o, d, lay, tile=128, t_max=cap, resolve=False)
-        c1 = pt.intersect_bvh_window(
-            o, d, lay, tile=128, t_max=cap, resolve=False, hbm=True)
-    for a, b in ((h0, h1), (c0, c1)):
-        np.testing.assert_array_equal(np.asarray(a.t), np.asarray(b.t))
-        np.testing.assert_array_equal(np.asarray(a.tri), np.asarray(b.tri))
-        np.testing.assert_array_equal(np.asarray(a.u), np.asarray(b.u))
-        np.testing.assert_array_equal(
-            np.asarray(a.normal), np.asarray(b.normal))
-
-
-def test_pallas_occlusion_capped(scene_and_layout):
-    """resolve=False + t_max: the occlusion path must report exactly the
-    hits the brute oracle finds within the cap."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from tpu_pathtracer.ops import pallas_traverse as pt
-
-    scene, lay = scene_and_layout
-    o, d = _random_rays(256, key=11)
+def test_kernel_capped_occlusion(kscene):
+    """t_max seeds best_t: only hits strictly inside the cap are reported,
+    and they are the brute oracle's nearest hits."""
+    scene, lay = kscene
+    o, d = _random_rays(2048, key=11)
     hb = intersect_brute(o, d, scene.p0, scene.p1, scene.p2)
     tb = np.asarray(hb.t)
-    cap = jnp.where(jnp.isfinite(hb.t), hb.t * 1.25, 2.0)
-    with pltpu.force_tpu_interpret_mode():
-        ho = pt.intersect_bvh_pallas(
-            o, d, lay, tile=128, t_max=cap, resolve=False, prepass=0
-        )
-    to = np.asarray(ho.t)
+    # half the lanes capped past their nearest hit, half short of it
+    cap = jnp.where(jnp.isfinite(hb.t),
+                    hb.t * jnp.where(jnp.arange(2048) % 2 == 0, 1.25, 0.8),
+                    2.0)
+    hk = _kernel(o, d, lay, t_max=cap)
+    tk = np.asarray(hk.t)
     within = np.isfinite(tb) & (tb < np.asarray(cap))
-    assert (np.isfinite(to) == within).all()
-    np.testing.assert_allclose(to[within], tb[within], rtol=1e-4)
-    # the occlusion result carries the original triangle id (shadow target test)
-    assert (np.asarray(ho.tri)[within] == np.asarray(hb.tri)[within]).mean() > 0.98
+    np.testing.assert_array_equal(np.isfinite(tk), within)
+    np.testing.assert_allclose(tk[within], tb[within], rtol=1e-4, atol=1e-6)
+    assert (np.asarray(hk.tri)[within] == np.asarray(hb.tri)[within]).mean() > 0.98
+    _same_hits(hk, intersect_bvh(o, d, lay, t_max=cap))
 
 
-def test_pallas_occlusion_anyhit_matches_nearest(scene_and_layout):
-    """The any-hit occlusion kernel's clear mask == the reference nearest-
-    hit==target formulation, on NEE-shaped shadow rays (origins on random
-    surface points, targets sampled on real light triangles, caps at the
-    sample distance + 4eps) plus env-style lanes (target -1, unbounded)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from tpu_pathtracer.ops import pallas_traverse as pt
-
-    scene, lay = scene_and_layout
-    eps = 1e-4
-    n = 512
-    # surface origins: offset brute hits of random rays along the normal
-    o0, d0 = _random_rays(n, key=17)
-    hb = intersect_brute(o0, d0, scene.p0, scene.p1, scene.p2)
-    hit_ok = np.isfinite(np.asarray(hb.t))
-    t_safe = jnp.where(jnp.isfinite(hb.t), hb.t, 1.0)
-    origin = o0 + t_safe[None] * d0 - d0 * eps  # back off along the ray
-    # targets: a random light triangle + barycentric sample per lane
-    key = jax.random.PRNGKey(23)
-    k1, k2, k3 = jax.random.split(key, 3)
-    num_lights = int(scene.light_tri.shape[0]) - 1
-    li = jax.random.randint(k1, (n,), 0, max(num_lights, 1))
-    tgt = scene.light_tri[li].astype(jnp.int32)
-    r1 = jax.random.uniform(k2, (n,))
-    r2 = jax.random.uniform(k3, (n,))
-    su = 1.0 - jnp.sqrt(r1)
-    sv = jnp.sqrt(r1) * r2
-    p0 = scene.p0[:, tgt] if scene.p0.ndim == 2 else scene.p0[tgt]
-    p1 = scene.p1[:, tgt] if scene.p1.ndim == 2 else scene.p1[tgt]
-    p2 = scene.p2[:, tgt] if scene.p2.ndim == 2 else scene.p2[tgt]
-    lp = p0 + su[None] * (p1 - p0) + sv[None] * (p2 - p0)
-    delta = lp - origin
-    dist = jnp.linalg.norm(delta, axis=0)
-    nee_d = delta / jnp.maximum(dist, 1e-12)[None]
-    cap = dist + 4.0 * eps
-    # every 5th lane becomes an env-style sample: target -1, unbounded cap
-    is_env = jnp.arange(n) % 5 == 0
-    tgt = jnp.where(is_env, -1, tgt)
-    cap = jnp.where(is_env, 1e30, cap)
-    act = jnp.asarray(hit_ok)
-
-    with pltpu.force_tpu_interpret_mode():
-        clear_any = pt.occlusion_clear_anyhit(
-            origin, nee_d, lay, act, cap, tgt, eps=eps, tile=128
-        )
-        hit = pt.intersect_bvh_pallas(
-            origin, nee_d, lay, tile=128, t_max=cap, active=act,
-            resolve=False, prepass=0,
-        )
-    valid = np.isfinite(np.asarray(hit.t))
-    clear_near = np.asarray(act) & np.where(
-        np.asarray(tgt) >= 0,
-        valid & (np.asarray(hit.t) >= eps) & (np.asarray(hit.tri) == np.asarray(tgt)),
-        ~valid,
-    )
-    clear_any = np.asarray(clear_any) & np.asarray(act)
-    # exact agreement except the Moller-Trumbore roundoff band on the
-    # occluder-vs-light-distance comparison (ops/pallas_traverse.py)
-    mismatch = (clear_any != clear_near).mean()
-    assert mismatch < 2e-3, mismatch
+def test_kernel_active_mask(kscene):
+    scene, lay = kscene
+    o, d = _random_rays(1024, key=13)
+    act = jnp.arange(1024) % 3 != 0
+    hm = _kernel(o, d, lay, active=act)
+    assert not np.isfinite(np.asarray(hm.t)[~np.asarray(act)]).any()
+    _same_hits(hm, intersect_bvh(o, d, lay, active=act))
 
 
-def test_full_frame_pallas_matches_pure_jax():
-    """One frame through the full sorted-wavefront pipeline with the Pallas
-    intersector (interpret mode) == the same frame with pure-JAX traversal.
-    Guards the production TPU path (kernels + sorting + scatter) on CPU CI."""
-    import functools
-
-    from jax.experimental.pallas import tpu as pltpu
-
-    from tpu_pathtracer.config import RenderConfig
-    from tpu_pathtracer.models.camera import Camera
-    from tpu_pathtracer.ops import pallas_traverse as pt
-    from tpu_pathtracer.ops.traverse import make_bvh_intersector
-    from tpu_pathtracer.render.state import init_state, render_frame
-
-    scene = load_scene(scene_path("cornellbox"))
-    lay = build_layout(scene, leaf_size=4)
-    cfg = RenderConfig(
-        samples_per_frame=1, max_path_length=3, use_pallas=True,
-        traversal_tile=128, occlusion_tile=128,
-    )
-    cam = Camera.reference_default()
-    state0 = init_state(24, 32)
-
-    pallas_isect = pt.make_pallas_intersector(
-        lay, tile=128, occlusion_tile=128, prepass=8
-    )
-    with pltpu.force_tpu_interpret_mode():
-        out_p = render_frame(state0, scene, cfg, cam, pallas_isect)
-        accum_p = np.asarray(out_p.accum)
-
-    pure_isect = make_bvh_intersector(lay, scene)
-    out_j = render_frame(init_state(24, 32), scene, cfg, cam, pure_isect)
-    accum_j = np.asarray(out_j.accum)
-    assert np.isfinite(accum_p).all()
-    np.testing.assert_allclose(accum_p, accum_j, atol=2e-5)
+def test_kernel_pads_partial_block(kscene):
+    """N not a multiple of the block: the wrapper pads with inactive lanes
+    and slices them off; every real lane matches the walker."""
+    scene, lay = kscene
+    n = 3 * BLOCK + 7
+    o, d = _random_rays(n, key=17)
+    hk = _kernel(o, d, lay)
+    assert hk.t.shape == (n,) and hk.tri.shape == (n,)
+    _same_hits(hk, intersect_bvh(o, d, lay))
 
 
-def test_candidate_sweep_kernels(scene_and_layout):
-    """sweep_count matches a brute leaf-AABB count; the targeted MT kernel
-    agrees with the full window walk on every <=1-candidate lane.
-
-    The sweep kernels are EXPERIMENTAL (measured net-negative in production,
-    docs/ROADMAP.md) and live under scripts/; this keeps them honest in CI."""
-    import importlib.util
-
-    from jax.experimental.pallas import tpu as pltpu
-
-    from tpu_pathtracer.ops import pallas_traverse as pt
-
-    _spec = importlib.util.spec_from_file_location(
-        "experimental_pallas_sweep",
-        os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                     "scripts", "experimental_pallas_sweep.py"),
-    )
-    ps = importlib.util.module_from_spec(_spec)
-    _spec.loader.exec_module(ps)
-
-    scene, lay = scene_and_layout
-    o, d = _random_rays(256, key=21)
-    with pltpu.force_tpu_interpret_mode():
-        cnt, first = ps.sweep_count(o, d, lay, tile=128, prepass=8)
-        raw, tmax = ps.intersect_sweep1(
-            o, d, lay, active=cnt <= 1, tile=128, prepass=8
-        )
-        # sweep raw rows are [t, u, v, row, orig]; the production resolver
-        # takes slim [t, row] and recomputes u/v from the winning row
-        import jax.numpy as jnp
-
-        hs = pt.resolve_window_payload(
-            lay, jnp.stack([raw[0], raw[3]]), tmax, o, d
-        )
-        hw = pt.intersect_bvh_window(
-            o, d, lay, tile=128, prepass=8, tritest="mt"
-        )
-    cnt, first = np.asarray(cnt), np.asarray(first)
-    # brute count: leaf AABBs crossed within the primed segment — recompute
-    # the prime as "best hit among the prepass triangles" via the oracle
-    lb = np.asarray(lay.leafbox)[: lay.num_leaves]
-    pre = np.asarray(lay.prepass)[:8]
-    on, dn = np.asarray(o), np.asarray(d)
-    for i in range(0, 256, 17):
-        oi, di = on[:, i], dn[:, i]
-        inv = np.where(np.abs(di) > 1e-12, 1.0 / di, np.inf)
-        prime = np.inf
-        for trow in pre:
-            if np.abs(trow).sum() == 0:
-                continue
-            e1, e2, p0 = trow[3:6], trow[6:9], trow[0:3]
-            pv = np.cross(di, e2)
-            det = np.dot(e1, pv)
-            if det == 0:
-                continue
-            tv = oi - p0
-            uu = np.dot(tv, pv) / det
-            qv = np.cross(tv, e1)
-            vv = np.dot(di, qv) / det
-            tt = np.dot(e2, qv) / det
-            if uu >= 0 and vv >= 0 and uu + vv <= 1 and 0 < tt < prime:
-                prime = tt
-        c = 0
-        for box in lb:
-            t0 = (box[0:3] - oi) * inv
-            t1 = (box[3:6] - oi) * inv
-            enter = np.minimum(t0, t1).max()
-            exit_ = np.maximum(t0, t1).min()
-            if enter <= exit_ and exit_ > 0 and enter < prime:
-                c += 1
-        assert abs(c - cnt[i]) <= 1, (i, c, cnt[i])  # float-edge tolerance
-    # targeted kernel == full walk on its lanes
-    sel = cnt <= 1
-    tw, ts = np.asarray(hw.t)[sel], np.asarray(hs.t)[sel]
-    assert (np.isfinite(tw) == np.isfinite(ts)).all()
-    both = np.isfinite(tw)
-    np.testing.assert_allclose(tw[both], ts[both], rtol=1e-6)
-    np.testing.assert_array_equal(
-        np.asarray(hw.tri)[sel][both], np.asarray(hs.tri)[sel][both]
-    )
-    # random in-box rays at leaf4 are a worst case; just require coverage
-    assert sel.mean() > 0.05
-
-
-def test_pallas_bw_far_from_origin():
-    """A scene translated 1e4..3e4 units from the world origin must keep the
-    origin-centered scene's t precision in the production BW path: the BW
-    plane constants are anchored at the scene-AABB center (accel/layout.py)
-    and evaluated at o - anchor in-kernel, so |n.o + d| cancellation stays
-    at scene-extent scale.  (Unanchored world-origin planes lose ~3 decimal
-    digits here and fail this gate.)"""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from tpu_pathtracer.ops import pallas_traverse as pt
-
-    scene = load_scene(scene_path("cornellbox"))
+def test_kernel_far_from_origin(kscene):
+    """A scene translated 1e4..3e4 units from the world origin keeps the
+    oracle's hits (Moller-Trumbore is translation-invariant)."""
+    scene, _ = kscene
     shift = jnp.asarray([1.0e4, -2.0e4, 3.0e4], jnp.float32)[:, None]
     far = scene._replace(
-        p0=scene.p0 + shift, p1=scene.p1 + shift, p2=scene.p2 + shift
-    )
-    lay = build_layout(far, leaf_size=4)
-    a = np.asarray(lay.anchor)
-    assert np.abs(a - np.asarray(shift)[:, 0]).max() < 5.0  # ~AABB center
-
-    o, d = _random_rays(512, key=9)
+        p0=scene.p0 + shift, p1=scene.p1 + shift, p2=scene.p2 + shift)
+    lay = build_layout(far, leaf_size=8)
+    o, d = _random_rays(1024, key=9)
     o = o + shift
+    hk = _kernel(o, d, lay)
     hb = intersect_brute(o, d, far.p0, far.p1, far.p2)
-    tb = np.asarray(hb.t)
-    # the production BW window path (unanchored world-origin planes measure
-    # rel t errors up to ~1e2 on this scene) and the MT v1 path
-    with pltpu.force_tpu_interpret_mode():
-        hw = pt.intersect_bvh_window(o, d, lay, tile=128, tritest="bw")
-        hv = pt.intersect_bvh_pallas(o, d, lay, tile=128)
-    for hs in (hw, hv):
-        tp_ = np.asarray(hs.t)
-        assert (np.isfinite(tb) == np.isfinite(tp_)).all()
-        both = np.isfinite(tb)
-        # same tolerance band the origin-centered gates use
-        np.testing.assert_allclose(tb[both], tp_[both], rtol=2e-4)
-        agree = (np.asarray(hb.tri)[both] == np.asarray(hs.tri)[both]).mean()
-        assert agree > 0.98
+    tk, tb = np.asarray(hk.t), np.asarray(hb.t)
+    np.testing.assert_array_equal(np.isfinite(tk), np.isfinite(tb))
+    both = np.isfinite(tb)
+    np.testing.assert_allclose(tk[both], tb[both], rtol=2e-4, atol=1e-6)
+    assert (np.asarray(hk.tri)[both] == np.asarray(hb.tri)[both]).mean() > 0.98
+    _same_hits(hk, intersect_bvh(o, d, lay))
 
 
-def test_resolve_gather_modes_identical():
-    # cfg.resolve_gather selects the XLA lowering of the payload-resolve
-    # gather ("rows" / "cols" / "percol"); all three fetch the same table
-    # elements, so every HitShade field must match EXACTLY (same arithmetic
-    # on the same values — only the gather op differs).
-    from tpu_pathtracer.ops.pallas_traverse import resolve_window_payload
-
-    scene = load_scene(scene_path("cornellbox"), samples=3)
-    for bake in (False, True):
-        lay = build_layout(scene, leaf_size=4, bake_materials=bake)
-        n = 257
-        key = jax.random.PRNGKey(3)
-        k1, k2, k3 = jax.random.split(key, 3)
-        nrows = lay.tris.shape[0]
-        row = jax.random.randint(k1, (n,), 0, nrows).astype(jnp.float32)
-        t = jax.random.uniform(k2, (n,), minval=0.1, maxval=5.0)
-        # a sprinkling of misses (t beyond cap)
-        t = t.at[::7].set(100.0)
-        out = jnp.zeros((8, n), jnp.float32).at[0].set(t).at[1].set(row)
-        t_max = jnp.full((n,), 10.0, jnp.float32)
-        o, d = _random_rays(n, key=5)
-        hs = {
-            g: resolve_window_payload(lay, out, t_max, o, d, gather=g)
-            for g in ("rows", "cols", "percol")
-        }
-        for g in ("cols", "percol"):
-            for a, b in zip(jax.tree.leaves(hs["rows"]), jax.tree.leaves(hs[g])):
-                np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-        if bake:
-            assert hs["rows"].mataux is not None
-
-
-def test_pallas_sweep_matches_window(scene_and_layout):
-    """The dense-sweep kernel (v3, no navigation) must find the same nearest
-    hits as the window walk.  NOT bit-for-bit: the walk may skip a subtree
-    whose slab ``enter`` rounds to >= best_t while a triangle inside beats
-    best_t by an ulp (tt >= enter holds only up to FMA roundoff) — the sweep
-    tests every row, so t can differ in the last ulp and near-exact ties can
-    pick the other coplanar triangle."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from tpu_pathtracer.ops import pallas_traverse as pt
-
-    scene, lay = scene_and_layout
-    o, d = _random_rays(256, key=31)
-    cap = jnp.full((256,), 2.0)
-    act = jnp.arange(256) % 3 != 0
-
-    def check(hw, hs):
-        tw, ts = np.asarray(hw.t), np.asarray(hs.t)
-        assert (np.isfinite(tw) == np.isfinite(ts)).all()
-        both = np.isfinite(tw)
-        np.testing.assert_allclose(tw[both], ts[both], rtol=1e-6)
-        agree = (np.asarray(hw.tri)[both] == np.asarray(hs.tri)[both]).mean()
-        assert agree > 0.99, agree
-
-    with pltpu.force_tpu_interpret_mode():
-        for tt in ("bw", "mt"):
-            hw = pt.intersect_bvh_window(
-                o, d, lay, tile=128, prepass=0, tritest=tt)
-            hs = pt.intersect_bvh_sweep(
-                o, d, lay, tile=128, mtblock=16, tritest=tt)
-            check(hw, hs)
-            cw = pt.intersect_bvh_window(
-                o, d, lay, tile=128, prepass=0, tritest=tt, t_max=cap,
-                active=act, resolve=False)
-            cs = pt.intersect_bvh_sweep(
-                o, d, lay, tile=128, mtblock=16, tritest=tt, t_max=cap,
-                active=act, resolve=False)
-            check(cw, cs)
-            # block width is a pure execution-order knob WITHIN the sweep
-            hs2 = pt.intersect_bvh_sweep(
-                o, d, lay, tile=128, mtblock=8, tritest=tt)
-            np.testing.assert_array_equal(np.asarray(hs.t), np.asarray(hs2.t))
-            np.testing.assert_array_equal(
-                np.asarray(hs.tri), np.asarray(hs2.tri))
-
-
-def test_pallas_sweep_fat_block_overruns_pad(scene_and_layout):
-    """A sweep mtblock bigger than the layout's +72 pad rows must extend the
-    table with self-rejecting zero rows, not crash (cornellbox T8 = 112;
-    mtblock 120 overruns by 8) — and produce identical hits."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from tpu_pathtracer.ops import pallas_traverse as pt
-
-    scene, lay = scene_and_layout
-    o, d = _random_rays(256, key=61)
-    with pltpu.force_tpu_interpret_mode():
-        a = pt.intersect_bvh_sweep(o, d, lay, tile=128, mtblock=16)
-        b = pt.intersect_bvh_sweep(o, d, lay, tile=128, mtblock=120)
-    np.testing.assert_array_equal(np.asarray(a.t), np.asarray(b.t))
-    np.testing.assert_array_equal(np.asarray(a.tri), np.asarray(b.tri))
-
-
-def test_window_with_orig(scene_and_layout):
-    """with_orig: raw row 2 carries the winner's ORIGINAL triangle id
-    (match against the resolved HitShade.tri; -1 on misses)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from tpu_pathtracer.ops import pallas_traverse as pt
-
-    scene, lay = scene_and_layout
-    o, d = _random_rays(256, key=37)
-    with pltpu.force_tpu_interpret_mode():
-        raw, tmax = pt.intersect_bvh_window(
-            o, d, lay, tile=128, raw=True, with_orig=True)
-        hw = pt.intersect_bvh_window(o, d, lay, tile=128)
-    orig = np.asarray(raw[2]).astype(np.int32)
-    hitm = np.isfinite(np.asarray(hw.t))
-    np.testing.assert_array_equal(orig[hitm], np.asarray(hw.tri)[hitm])
-    assert (orig[~hitm] == -1).all()
-
-
-def test_fused_walk_matches_separate(scene_and_layout):
-    """fn.fused (one 2N-lane walk) must reproduce (a) the separate nearest-
-    hit window walk bit-for-bit — per-lane traversal is tile-composition-
-    invariant — and (b) the nearest-hit==target occlusion semantics."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from tpu_pathtracer.ops import pallas_traverse as pt
-
-    scene, lay = scene_and_layout
+def _nee_queries(scene, n, key):
+    """NEE-shaped shadow queries: origins on surface points, directions to
+    sampled points on real light triangles, caps just past the light
+    (trace_bounce's dist + 4 eps), every 5th lane an env-style unbounded
+    query (target -1)."""
     eps = 1e-4
-    n = 256
-    o0, d0 = _random_rays(n, key=41)
+    o0, d0 = _random_rays(n, key=key)
     hb = intersect_brute(o0, d0, scene.p0, scene.p1, scene.p2)
-    hit_ok = np.isfinite(np.asarray(hb.t))
-    t_safe = jnp.where(jnp.isfinite(hb.t), hb.t, 1.0)
-    origin = o0 + t_safe[None] * d0 - d0 * eps
-    # path continuation: mirror-ish random directions
-    _, d1 = _random_rays(n, key=43)
-    # NEE-shaped shadow queries at the same origins
-    key = jax.random.PRNGKey(47)
-    k1, k2, k3 = jax.random.split(key, 3)
+    ok = jnp.isfinite(hb.t)
+    origin = o0 + jnp.where(ok, hb.t, 1.0)[None] * d0 - d0 * eps
+    k1, k2, k3 = jax.random.split(jax.random.PRNGKey(key + 1), 3)
     num_lights = int(scene.light_tri.shape[0]) - 1
     li = jax.random.randint(k1, (n,), 0, max(num_lights, 1))
     tgt = scene.light_tri[li].astype(jnp.int32)
@@ -623,144 +210,147 @@ def test_fused_walk_matches_separate(scene_and_layout):
     r2 = jax.random.uniform(k3, (n,))
     su = 1.0 - jnp.sqrt(r1)
     sv = jnp.sqrt(r1) * r2
-    p0 = scene.p0[:, tgt]
-    p1 = scene.p1[:, tgt]
-    p2 = scene.p2[:, tgt]
+    p0, p1, p2 = scene.p0[:, tgt], scene.p1[:, tgt], scene.p2[:, tgt]
     lp = p0 + su[None] * (p1 - p0) + sv[None] * (p2 - p0)
     delta = lp - origin
     dist = jnp.linalg.norm(delta, axis=0)
-    nee_d = delta / jnp.maximum(dist, 1e-12)[None]
-    cap = dist + 4.0 * eps
+    to_light = delta / jnp.maximum(dist, 1e-12)[None]
     is_env = jnp.arange(n) % 5 == 0
     tgt = jnp.where(is_env, -1, tgt)
-    cap = jnp.where(is_env, 1e30, cap)
-    alive = jnp.asarray(hit_ok)
-    sok = alive & (jnp.arange(n) % 7 != 0)
+    cap = jnp.where(is_env, 1e30, dist + 4.0 * eps)
+    return origin, to_light, ok, cap, tgt, eps
 
-    fn = pt.make_pallas_intersector(
-        lay, tile=128, occlusion_tile=128, secondary_tile=128, prepass=8,
-        anyhit=False, eps=eps, tritest="mt",
-    )
-    with pltpu.force_tpu_interpret_mode():
-        hit_f, clear_f = fn.fused(origin, d1, alive, nee_d, sok, cap, tgt)
-        hit_s = fn(origin, d1, alive, coherent=False)
-        occ = pt.intersect_bvh_pallas(
-            origin, nee_d, lay, tile=128, t_max=cap, active=sok,
-            resolve=False, prepass=0,
-        )
-    # (a) nearest-hit record identical to the separate walk
-    for a, b in zip(jax.tree.leaves(hit_f), jax.tree.leaves(hit_s)):
+
+def test_kernel_occlusion_clear_matches_walker(kscene):
+    """occlusion_clear (nearest-hit-within-cap must be the target) gives the
+    same visibility through the kernel as through the walker."""
+    from pathtracer.ops.traverse import make_bvh_intersector
+    from pathtracer.render.wavefront import occlusion_clear
+
+    scene, lay = kscene
+    o, d, ok, cap, tgt, eps = _nee_queries(scene, 2048, key=23)
+    walker = make_bvh_intersector(lay, scene)
+    kernel = make_bvh_intersector(
+        lay, scene, traverse=lambda *a, **kw: _kernel(*a, **kw))
+    ck = np.asarray(occlusion_clear(kernel, o, d, ok, cap, tgt, eps))
+    cw = np.asarray(occlusion_clear(walker, o, d, ok, cap, tgt, eps))
+    np.testing.assert_array_equal(ck, cw)
+    assert not ck[~np.asarray(ok)].any()
+
+
+@pytest.mark.parametrize("block", [32, 64, 128])
+def test_kernel_block_size_is_execution_order_only(block):
+    """The block size changes which lanes share a loop, never a lane's
+    result."""
+    scene = load_scene(scene_path("CornellBox-Water-plastic"))
+    lay = build_layout(scene, leaf_size=8)
+    o, d = _random_rays(1000, key=19)
+    cap = jnp.full((1000,), 1.5)
+    ref = _kernel(o, d, lay, t_max=cap)
+    hb = _kernel(o, d, lay, t_max=cap, block=block)
+    for a, b in zip(ref, hb):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    # (b) occlusion clear == the v1 nearest-hit==target formulation; t values
-    # differ only by block-vs-scalar FMA contraction (rtol ~1e-6), so allow
-    # the same tiny boundary-mismatch band the any-hit test uses
-    valid = np.isfinite(np.asarray(occ.t))
-    clear_near = np.asarray(sok) & np.where(
-        np.asarray(tgt) >= 0,
-        valid & (np.asarray(occ.t) >= eps)
-        & (np.asarray(occ.tri) == np.asarray(tgt)),
-        ~valid,
-    )
-    mismatch = (np.asarray(clear_f) != clear_near).mean()
-    assert mismatch < 2e-3, mismatch
 
 
-def test_full_frame_fused_and_sweep_match_baseline():
-    """One frame through the sorted-wavefront pipeline with (a) the fused
-    path+shadow walk and (b) the dense-sweep secondary kernel == the
-    separate-walk window baseline (interpret mode)."""
-    from jax.experimental.pallas import tpu as pltpu
+@pytest.mark.parametrize("scene_name", ["cornellbox", "CornellBox-Water-plastic"])
+def test_full_frame_kernel_matches_walker(scene_name):
+    """One frame through the full sorted-wavefront pipeline (live-prefix
+    ladder, deferred shadow packs, raster restore) with the kernel ==
+    the same frame with the XLA walker."""
+    from pathtracer.config import RenderConfig
+    from pathtracer.models.camera import Camera
+    from pathtracer.render.state import init_state, render_frame
+    from pathtracer.render.wavefront import make_intersector
 
-    from tpu_pathtracer.config import RenderConfig
-    from tpu_pathtracer.models.camera import Camera
-    from tpu_pathtracer.ops import pallas_traverse as pt
-    from tpu_pathtracer.render.state import init_state, render_frame
-
-    scene = load_scene(scene_path("cornellbox"))
-    lay = build_layout(scene, leaf_size=4)
+    scene = load_scene(scene_path(scene_name))
+    cfg = RenderConfig(samples_per_frame=1, max_path_length=3, leaf_size=8)
+    lay = build_layout(scene, leaf_size=8)
     cam = Camera.reference_default()
-
-    def frame(cfg, **isect_kw):
-        isect = pt.make_pallas_intersector(
-            lay, tile=128, occlusion_tile=128, secondary_tile=128,
-            prepass=8, **isect_kw,
-        )
-        with pltpu.force_tpu_interpret_mode():
-            out = render_frame(init_state(24, 32), scene, cfg, cam, isect)
-            return np.asarray(out.accum)
-
-    base_cfg = RenderConfig(
-        samples_per_frame=1, max_path_length=3, use_pallas=True,
-        traversal_tile=128, occlusion_tile=128, secondary_tile=128,
-    )
-    accum_base = frame(base_cfg)
-    assert np.isfinite(accum_base).all()
-    accum_fused = frame(base_cfg.replace(fuse_shadow_walk=True))
-    np.testing.assert_allclose(accum_fused, accum_base, atol=2e-5)
-    accum_sweep = frame(
-        base_cfg.replace(traversal_kernel="sweep", sweep_tile=128,
-                         sweep_mtblock=16),
-        kernel="sweep", sweep_tile=128, sweep_mtblock=16,
-    )
-    np.testing.assert_allclose(accum_sweep, accum_base, atol=2e-5)
-    # fused + sweep combined
-    accum_fs = frame(
-        base_cfg.replace(traversal_kernel="sweep", sweep_tile=128,
-                         sweep_mtblock=16, fuse_shadow_walk=True),
-        kernel="sweep", sweep_tile=128, sweep_mtblock=16,
-    )
-    np.testing.assert_allclose(accum_fs, accum_base, atol=2e-5)
+    kernel = make_intersector(scene, cfg, lay, traverse=_kernel)
+    walker = make_intersector(scene, cfg, lay)
+    assert kernel.backend == "given" and walker.backend == "walker"
+    out_k = render_frame(init_state(24, 32), scene, cfg, cam, kernel)
+    out_w = render_frame(init_state(24, 32), scene, cfg, cam, walker)
+    accum_k, accum_w = np.asarray(out_k.accum), np.asarray(out_w.accum)
+    assert np.isfinite(accum_k).all() and accum_k.mean() > 0
+    np.testing.assert_allclose(accum_k, accum_w, atol=2e-5)
 
 
-def test_window_with_counts(scene_and_layout):
-    """with_counts must not change the hits, tested must be tile-uniform and
-    >= useful, and useful must be positive for a live wavefront."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from tpu_pathtracer.ops import pallas_traverse as pt
-
-    scene, lay = scene_and_layout
-    o, d = _random_rays(256, key=53)
-    with pltpu.force_tpu_interpret_mode():
-        raw, _ = pt.intersect_bvh_window(
-            o, d, lay, tile=128, raw=True, with_counts=True, prepass=8)
-        hw = pt.intersect_bvh_window(o, d, lay, tile=128, prepass=8)
-    t_counted = np.where(np.asarray(raw[0]) < np.inf, raw[0], np.inf)
-    np.testing.assert_array_equal(t_counted, np.asarray(hw.t))
-    tested = np.asarray(raw[6])
-    useful = np.asarray(raw[7])
-    # tested is the tile's row count: identical for every lane of a tile
-    assert (tested[:128] == tested[0]).all()
-    assert (tested[128:] == tested[128]).all()
-    assert tested[0] >= 8  # at least the prepass rows
-    assert (useful <= tested).all()
-    assert useful.sum() > 0
+class _FakeDevice:
+    def __init__(self, platform):
+        self.platform = platform
 
 
-def test_utilization_report_interpret():
-    """The bench's utilization block computes on a real frame's secondary
-    wavefront and satisfies its own invariants (interpret mode)."""
-    from jax.experimental.pallas import tpu as pltpu
+@pytest.mark.parametrize("platform,intersector,expect", [
+    ("gpu", "bvh", "kernel"),
+    ("cpu", "bvh", "walker"),
+    ("gpu", "brute", "brute"),
+    ("metal", "bvh", RuntimeError),
+    ("rocm", "bvh", RuntimeError),
+])
+def test_backend_chosen_in_one_place(monkeypatch, platform, intersector,
+                                     expect):
+    """gpu -> the kernel, cpu -> the walker, anything else -> an error (no
+    silent fallback); brute force is the user's explicit choice."""
+    from pathtracer.config import RenderConfig
+    from pathtracer.render import wavefront as wf
 
-    from tpu_pathtracer.config import RenderConfig
-    from tpu_pathtracer.ops import pallas_traverse as pt
-    from tpu_pathtracer.render.stats import utilization_report
+    cfg = RenderConfig(intersector=intersector)
+    scene = load_scene(scene_path("cornellbox"))
+    lay = build_layout(scene, leaf_size=4)
+    monkeypatch.setattr(wf.jax, "devices", lambda: [_FakeDevice(platform)])
+    if expect is RuntimeError:
+        with pytest.raises(RuntimeError, match=platform):
+            wf.make_intersector(scene, cfg, lay)
+        return
+    assert wf.traversal_backend(cfg) == expect
+    assert wf.make_intersector(scene, cfg, lay).backend == expect
+
+
+def test_traverse_seam_bypasses_platform_choice(monkeypatch):
+    """A given ``traverse`` is used as is, whatever the platform: the seam
+    the GPU smoke run uses to render with the XLA walker."""
+    from pathtracer.config import RenderConfig
+    from pathtracer.render import wavefront as wf
 
     scene = load_scene(scene_path("cornellbox"))
     lay = build_layout(scene, leaf_size=4)
-    cfg = RenderConfig(
-        max_path_length=3, traversal_tile=128, secondary_tile=128,
-        occlusion_tile=128, traversal_prepass=8,
-    )
-    isect = pt.make_pallas_intersector(
-        lay, tile=128, occlusion_tile=128, secondary_tile=128, prepass=8)
-    with pltpu.force_tpu_interpret_mode():
-        rep = utilization_report(
-            scene, cfg, lay, 24, 32, isect,
-            traced_per_frame=3e3, frame_time_s=0.1,
-        )
-    assert rep["live_rays"] > 0
-    assert 0.0 < rep["mt_lane_utilization"] <= 1.0
-    assert rep["useful_lane_ops_per_ray"] <= rep["spent_lane_ops_per_ray"]
-    assert rep["est_vpu_peak_pct"] > 0
-    assert rep["est_hbm_gb_per_s_model"] > 0
+    calls = []
+
+    def traverse(*args, **kw):
+        calls.append(kw.get("t_max"))
+        return intersect_bvh(*args, **kw)
+
+    monkeypatch.setattr(wf.jax, "devices", lambda: [_FakeDevice("metal")])
+    fn = wf.make_intersector(scene, RenderConfig(), lay, traverse=traverse)
+    assert fn.backend == "given"
+    o, d = _random_rays(256)
+    act = jnp.ones((256,), bool)
+    ref = wf.make_bvh_intersector(lay, scene)(o, d, act)
+    got = fn(o, d, act)
+    assert calls == [None]
+    np.testing.assert_array_equal(np.asarray(got.t), np.asarray(ref.t))
+
+
+@pytest.mark.parametrize("env_set", [True, False])
+def test_compile_cache_dir(monkeypatch, tmp_path, env_set):
+    """JAX_COMPILATION_CACHE_DIR wins and nothing else is configured;
+    without it the cache goes to the fixed in-checkout directory."""
+    from pathtracer.utils import compile_cache as cc
+
+    calls = []
+    monkeypatch.setattr(jax.config, "update",
+                        lambda name, value: calls.append((name, value)))
+    if env_set:
+        monkeypatch.setenv(cc.ENV_VAR, str(tmp_path))
+        assert cc.enable_compile_cache() == str(tmp_path)
+        assert cc.compile_cache_dir() == str(tmp_path)
+        assert calls == []
+    else:
+        monkeypatch.delenv(cc.ENV_VAR, raising=False)
+        assert cc.enable_compile_cache() == cc.DEFAULT_DIR
+        assert ("jax_compilation_cache_dir", cc.DEFAULT_DIR) in calls
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        assert cc.DEFAULT_DIR == os.path.join(repo, ".jax_cache")
+        with open(os.path.join(repo, ".gitignore")) as f:
+            assert ".jax_cache/" in f.read().split()

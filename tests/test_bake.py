@@ -1,47 +1,39 @@
-"""cfg.bake_materials: material constants baked into the resolve rows must be
+"""cfg.bake_materials: material constants baked into per-triangle rows must be
 an exact, bit-identical replacement for the select_cols chains."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from tpu_pathtracer.accel import build_layout
-from tpu_pathtracer.config import RenderConfig
-from tpu_pathtracer.ops.pallas_traverse import resolve_window_payload
-from tpu_pathtracer.ops.tables import select_cols
-from tpu_pathtracer.render.wavefront import (
+from pathtracer.accel import build_layout
+from pathtracer.config import RenderConfig
+from pathtracer.ops.intersect import Hit, shade_from_scene
+from pathtracer.ops.tables import select_cols
+from pathtracer.render.wavefront import (
     initial_path_state, make_brute_intersector, trace_bounce,
 )
-from tpu_pathtracer.render.noise import bounce_uniforms
-from tpu_pathtracer.scene import load_scene, scene_path
-
-
-def _raw_out(lay, n, key=3):
-    """Synthetic raw window-kernel output: random valid sorted rows."""
-    rows = jax.random.randint(jax.random.PRNGKey(key), (n,), 0, lay.num_tris)
-    t = jnp.full((n,), 1.25, jnp.float32)
-    out = jnp.zeros((8, n), jnp.float32)
-    out = out.at[0].set(t).at[1].set(rows.astype(jnp.float32))
-    return out, rows
+from pathtracer.render.noise import bounce_uniforms
+from pathtracer.scene import load_scene, scene_path
 
 
 def test_baked_resolve_matches_chains():
     scene = load_scene(scene_path("CornellBox-Water-plastic"))
     lay_plain = build_layout(scene, leaf_size=8)
     lay_bake = build_layout(scene, leaf_size=8, bake_materials=True)
-    assert lay_bake.triswide is not None
+    assert lay_plain.matrows is None and lay_bake.matrows is not None
     s, has_rough = lay_bake.matmeta
     assert s == scene.mat_diffuse.shape[0]
     assert has_rough == (scene.mat_roughness is not None)
 
+    # synthetic hits on random triangles, plus a sprinkling of misses
     n = 512
-    out, _ = _raw_out(lay_plain, n)
-    t_max = jnp.full((n,), 1e30)
-    o = jnp.zeros((3, n), jnp.float32).at[1].set(1.0)
-    d = jnp.zeros((3, n), jnp.float32).at[2].set(-1.0)
+    tri = jax.random.randint(jax.random.PRNGKey(3), (n,), 0, lay_plain.num_tris)
+    t = jnp.full((n,), 1.25, jnp.float32).at[::7].set(jnp.inf)
+    u = jnp.full((n,), 0.25, jnp.float32)
+    hit = Hit(t=t, tri=tri.astype(jnp.int32), u=u, v=u)
 
-    hp = resolve_window_payload(lay_plain, out, t_max, o, d)
-    hb = resolve_window_payload(lay_bake, out, t_max, o, d)
+    hp = shade_from_scene(scene, hit, lay_plain)
+    hb = shade_from_scene(scene, hit, lay_bake)
 
     # geometry identical
     for a, b in [(hp.t, hb.t), (hp.u, hb.u), (hp.v, hb.v), (hp.tri, hb.tri),

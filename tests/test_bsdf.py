@@ -2,9 +2,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from tpu_pathtracer.config import PI
-from tpu_pathtracer.core.math3d import dot, reflect
-from tpu_pathtracer.models import bsdf
+from pathtracer.config import PI
+from pathtracer.core.math3d import dot, reflect
+from pathtracer.models import bsdf
 
 N_UP = jnp.array([[0.0], [0.0], [1.0]])
 
@@ -182,9 +182,9 @@ def test_refract_scene_renders_finite_and_differs():
     camera sees through the pane; straight-through parity does not."""
     import tempfile
 
-    from tpu_pathtracer.config import RenderConfig
-    from tpu_pathtracer.render import init_state, render_frame_jit
-    from tpu_pathtracer.scene import load_scene
+    from pathtracer.config import RenderConfig
+    from pathtracer.render import init_state, render_frame_jit
+    from pathtracer.scene import load_scene
 
     obj = """
 mtllib glass.mtl
@@ -258,9 +258,9 @@ def test_refract_transmits_through_pane():
     near-black through the glass."""
     import tempfile
 
-    from tpu_pathtracer.config import RenderConfig
-    from tpu_pathtracer.render import init_state, render_frame_jit
-    from tpu_pathtracer.scene import load_scene
+    from pathtracer.config import RenderConfig
+    from pathtracer.render import init_state, render_frame_jit
+    from pathtracer.scene import load_scene
 
     # emissive wall at z=-5 facing the camera (which sits at (0,1,2.35)
     # looking -z); a CLOSED vertical glass slab (front z=-2, back z=-2.3,

@@ -1,7 +1,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from tpu_pathtracer.models.camera import Camera, generate_rays
+from pathtracer.models.camera import Camera, generate_rays
 
 
 def _rays(h, w):
@@ -52,7 +52,7 @@ def test_thin_lens_focus_plane_sharp():
     reproduces the pinhole exactly."""
     import jax
 
-    from tpu_pathtracer.models.camera import Camera, generate_rays_flat
+    from pathtracer.models.camera import Camera, generate_rays_flat
 
     n = 4096
     rows = jnp.full((n,), 30, jnp.int32)
@@ -87,11 +87,11 @@ def test_thin_lens_focus_plane_sharp():
 def test_thin_lens_render_finite_and_blurs():
     """Full pipeline with aperture: finite, deterministic, and the strongly
     defocused render differs from the pinhole one."""
-    from tpu_pathtracer.config import RenderConfig
-    from tpu_pathtracer.models.camera import Camera
-    from tpu_pathtracer.render import init_state
-    from tpu_pathtracer.render.state import render_frame
-    from tpu_pathtracer.scene import load_scene, scene_path
+    from pathtracer.config import RenderConfig
+    from pathtracer.models.camera import Camera
+    from pathtracer.render import init_state
+    from pathtracer.render.state import render_frame
+    from pathtracer.scene import load_scene, scene_path
 
     scene = load_scene(scene_path("cornellbox"))
     cfg = RenderConfig(samples_per_frame=4, max_path_length=2,

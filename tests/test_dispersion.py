@@ -7,11 +7,11 @@ dispersion modulates per-bin reflectance only — paths never split."""
 import jax.numpy as jnp
 import numpy as np
 
-from tpu_pathtracer.config import RenderConfig
-from tpu_pathtracer.core.spectrum import bin_wavelengths, cauchy_ior_bins
-from tpu_pathtracer.models import bsdf
-from tpu_pathtracer.renderer import Renderer
-from tpu_pathtracer.scene import attach_dispersion, load_scene, scene_path
+from pathtracer.config import RenderConfig
+from pathtracer.core.spectrum import bin_wavelengths, cauchy_ior_bins
+from pathtracer.models import bsdf
+from pathtracer.renderer import Renderer
+from pathtracer.scene import attach_dispersion, load_scene, scene_path
 
 
 def test_cauchy_bins_anchor_and_slope():

@@ -7,10 +7,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpu_pathtracer.config import RenderConfig
-from tpu_pathtracer.models.envlight import build_env, eval_env, sample_env
-from tpu_pathtracer.render import init_state, render_frame_jit
-from tpu_pathtracer.scene import attach_env, load_scene, scene_path
+from pathtracer.config import RenderConfig
+from pathtracer.models.envlight import build_env, eval_env, sample_env
+from pathtracer.render import init_state, render_frame_jit
+from pathtracer.scene import attach_env, load_scene, scene_path
 
 
 def _test_map(eh=16, ew=32, seed=3):

@@ -1,8 +1,8 @@
 import numpy as np
 import pytest
 
-from tpu_pathtracer.io.exr import read_exr, write_exr
-from tpu_pathtracer.scene.assets import golden_path
+from pathtracer.io.exr import read_exr, write_exr
+from pathtracer.scene.assets import golden_path
 
 
 def test_golden_read():

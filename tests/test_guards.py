@@ -1,44 +1,20 @@
-"""Fail-fast guards: config validation and the sort compile-wall check."""
+"""Fail-fast guards: config validation and the sort lowerings."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpu_pathtracer.config import RenderConfig
-from tpu_pathtracer.render import wavefront as wf
+from pathtracer.config import RenderConfig
+from pathtracer.render import wavefront as wf
 
 
 def test_config_string_knobs_validated():
-    for field, bad in [("occlusion_anyhit", "true"), ("tritest", "BW"),
-                       ("traversal_kernel", "v2"), ("sampler", "halton"),
+    for field, bad in [("sort_lowering", "bitonic"), ("sampler", "halton"),
                        ("intersector", "mps")]:
         with pytest.raises(ValueError):
             RenderConfig(**{field: bad})
     RenderConfig()  # defaults pass
-
-
-def test_sort_operand_wall_guard(monkeypatch):
-    """S=8 full-spectral sorted wavefront must fail fast on TPU-family
-    backends instead of hanging the compile for hours."""
-    n, s = 8, 8
-    st = wf.initial_path_state(
-        jnp.zeros((3, n)), jnp.ones((3, n)) / np.sqrt(3.0), s)
-    pack = wf.ShadowPack(
-        to_light=jnp.zeros((3, n)), cap=jnp.ones((n,)),
-        target=jnp.zeros((n,), jnp.int32), contrib=jnp.zeros((s, n)),
-        ok=jnp.zeros((n,), bool))
-    wmin = (0.0, 0.0, 0.0)
-    winv = (1.0, 1.0, 1.0)
-    monkeypatch.setattr(wf.jax, "default_backend", lambda: "tpu")
-    with pytest.raises(RuntimeError, match="lax.sort operands"):
-        wf.sort_wavefront(st, wmin, winv, pack)
-    monkeypatch.undo()
-    # S=3 stays under the wall and sorts fine (real backend: CPU)
-    st3 = wf.initial_path_state(
-        jnp.zeros((3, n)), jnp.ones((3, n)) / np.sqrt(3.0), 3)
-    out = wf.sort_wavefront(st3, wmin, winv)
-    assert out.origin.shape == (3, n)
 
 
 def test_gather_sort_lowering_bit_identical():
@@ -73,21 +49,3 @@ def test_gather_sort_lowering_bit_identical():
     b2 = wf.sort_wavefront(st, wmin, winv, lowering="gather")
     for a, b in zip(jax.tree.leaves(a2), jax.tree.leaves(b2)):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-def test_gather_lowering_bypasses_operand_wall(monkeypatch):
-    """The argsort+gather lowering never builds the wide variadic sort, so
-    the TPU operand-count guard must not fire for it — this is what makes
-    S>3 full-spectral sorted wavefronts usable on TPU."""
-    n, s = 8, 8
-    st = wf.initial_path_state(
-        jnp.zeros((3, n)), jnp.ones((3, n)) / np.sqrt(3.0), s)
-    pack = wf.ShadowPack(
-        to_light=jnp.zeros((3, n)), cap=jnp.ones((n,)),
-        target=jnp.zeros((n,), jnp.int32), contrib=jnp.zeros((s, n)),
-        ok=jnp.zeros((n,), bool))
-    wmin, winv = (0.0, 0.0, 0.0), (1.0, 1.0, 1.0)
-    monkeypatch.setattr(wf.jax, "default_backend", lambda: "tpu")
-    out_st, out_pk = wf.sort_wavefront(st, wmin, winv, pack, lowering="gather")
-    assert out_st.origin.shape == (3, n)
-    assert out_pk.contrib.shape == (s, n)

@@ -26,9 +26,9 @@ import jax
 import numpy as np
 import pytest
 
-from tpu_pathtracer.config import RenderConfig
-from tpu_pathtracer.renderer import Renderer
-from tpu_pathtracer.scene import load_scene, scene_path
+from pathtracer.config import RenderConfig
+from pathtracer.renderer import Renderer
+from pathtracer.scene import load_scene, scene_path
 
 W, H = 24, 16
 DEPTH = 3

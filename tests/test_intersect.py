@@ -2,8 +2,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from tpu_pathtracer.ops.intersect import intersect_brute, moller_trumbore
-from tpu_pathtracer.scene import load_scene, scene_path
+from pathtracer.ops.intersect import intersect_brute, moller_trumbore
+from pathtracer.scene import load_scene, scene_path
 
 
 def _numpy_oracle(o, d, p0, p1, p2, t_min=0.0):

@@ -3,10 +3,10 @@ import os
 import pytest
 import numpy as np
 
-from tpu_pathtracer.config import RenderConfig
-from tpu_pathtracer.io.checkpoint import load_checkpoint, save_checkpoint
-from tpu_pathtracer.io.png import write_png
-from tpu_pathtracer.renderer import Renderer
+from pathtracer.config import RenderConfig
+from pathtracer.io.checkpoint import load_checkpoint, save_checkpoint
+from pathtracer.io.png import write_png
+from pathtracer.renderer import Renderer
 
 TINY = dict(width=32, height=24)
 CFG = RenderConfig(samples_per_frame=2, max_path_length=3, intersector="brute")
@@ -50,7 +50,7 @@ def test_save_outputs(tmp_path):
     png = str(tmp_path / "out.png")
     r.save_exr(exr)
     r.save_png(png)
-    from tpu_pathtracer.io.exr import read_exr
+    from pathtracer.io.exr import read_exr
 
     back, _ = read_exr(exr)
     np.testing.assert_allclose(back, r.image(), atol=2e-2)  # half precision
@@ -68,7 +68,7 @@ def test_reset_is_drawable_size_change(tmp_path):
 
 
 def test_cli_smoke(tmp_path):
-    from tpu_pathtracer.cli import main
+    from pathtracer.cli import main
 
     out = str(tmp_path / "cli.exr")
     rc = main([
@@ -82,7 +82,7 @@ def test_cli_smoke(tmp_path):
 def test_cli_resume_shape_mismatch(tmp_path):
     """--resume with a checkpoint at a different resolution must fail loudly
     instead of silently overriding --width/--height."""
-    from tpu_pathtracer.cli import main
+    from pathtracer.cli import main
 
     ckpt = str(tmp_path / "c.npz")
     r = Renderer("cornellbox", cfg=CFG, **TINY)
@@ -116,8 +116,8 @@ def test_frames_in_flight_async_equals_sync():
 def test_cli_content_scale(tmp_path):
     """--content-scale renders at drawable*s like the reference's
     CONTENT_SCALE (Renderer.mm:642-643)."""
-    from tpu_pathtracer.cli import main
-    from tpu_pathtracer.io.exr import read_exr
+    from pathtracer.cli import main
+    from pathtracer.io.exr import read_exr
 
     out = str(tmp_path / "half.exr")
     rc = main([
@@ -154,9 +154,9 @@ def test_checkpoint_orbax_sharded_accumulator(tmp_path):
     checkpoint story (parallel/multihost.py) in miniature on the virtual
     8-device CPU mesh."""
     pytest.importorskip("orbax.checkpoint")
-    from tpu_pathtracer.io.checkpoint import load_checkpoint, save_checkpoint
-    from tpu_pathtracer.parallel.tiles import make_mesh, shard_state
-    from tpu_pathtracer.render import init_state
+    from pathtracer.io.checkpoint import load_checkpoint, save_checkpoint
+    from pathtracer.parallel.tiles import make_mesh, shard_state
+    from pathtracer.render import init_state
 
     mesh = make_mesh(8, 1)
     state = init_state(32, 16)
@@ -183,7 +183,7 @@ def test_checkpoint_orbax_sharded_accumulator(tmp_path):
 def test_downsample_upscale_no_nan():
     """Regression: target dims larger than the source (the default 960x540
     render vs 800x600 goldens) left empty bins -> NaN columns."""
-    from tpu_pathtracer.utils.compare import downsample
+    from pathtracer.utils.compare import downsample
 
     src = np.random.default_rng(3).random((600, 800, 3)).astype(np.float32)
     for h, w in [(540, 960), (1080, 1920), (700, 640), (300, 400)]:
@@ -198,7 +198,7 @@ def test_downsample_upscale_no_nan():
 
 def test_metrics_masked_golden_nan():
     """A non-finite golden pixel must not leak NaN into rel_mse."""
-    from tpu_pathtracer.utils.compare import metrics
+    from pathtracer.utils.compare import metrics
 
     img = np.ones((16, 16, 3))
     gold = np.ones((16, 16, 3))

@@ -4,11 +4,11 @@ S>3 rendering, tonemap/sRGB display path."""
 import numpy as np
 import pytest
 
-from tpu_pathtracer.config import ComparisonMode, NoiseMode, RenderConfig
-from tpu_pathtracer.core import spectrum as spec
-from tpu_pathtracer.core.color import to_linear, to_srgb, tonemap_exposure
-from tpu_pathtracer.renderer import Renderer
-from tpu_pathtracer.utils.compare import comparison_image
+from pathtracer.config import ComparisonMode, NoiseMode, RenderConfig
+from pathtracer.core import spectrum as spec
+from pathtracer.core.color import to_linear, to_srgb, tonemap_exposure
+from pathtracer.renderer import Renderer
+from pathtracer.utils.compare import comparison_image
 
 TINY = dict(width=32, height=24)
 
@@ -88,7 +88,7 @@ def test_blit_display_manual_srgb_ordering():
     diff of sRGB-encoded color, displayed raw; hardware = diff of linear
     color, sRGB-encoded by the framebuffer).
     """
-    from tpu_pathtracer.utils.compare import blit_display
+    from pathtracer.utils.compare import blit_display
 
     rng = np.random.default_rng(1)
     color = rng.random((6, 6, 3)).astype(np.float32)
@@ -145,9 +145,9 @@ def test_animate_noise_off_freezes_tile_data():
     import jax
     import jax.numpy as jnp
 
-    from tpu_pathtracer.models.camera import Camera
-    from tpu_pathtracer.render.state import sample_sum
-    from tpu_pathtracer.scene import load_scene, scene_path
+    from pathtracer.models.camera import Camera
+    from pathtracer.render.state import sample_sum
+    from pathtracer.scene import load_scene, scene_path
 
     scene = load_scene(scene_path("cornellbox"))
     cam = Camera.reference_default()
@@ -168,7 +168,7 @@ def test_animate_noise_off_freezes_tile_data():
 
 
 def test_spectral_save_collapses_to_rgb(tmp_path):
-    from tpu_pathtracer.io.exr import read_exr
+    from pathtracer.io.exr import read_exr
 
     cfg = RenderConfig(
         samples_per_frame=1, max_path_length=2, intersector="brute",
@@ -193,9 +193,9 @@ def test_hero_wavelength_matches_full_spectral():
     materials the per-bin means converge to the same values."""
     import jax
 
-    from tpu_pathtracer.models.camera import Camera
-    from tpu_pathtracer.render.state import sample_sum
-    from tpu_pathtracer.scene import load_scene, scene_path
+    from pathtracer.models.camera import Camera
+    from pathtracer.render.state import sample_sum
+    from pathtracer.scene import load_scene, scene_path
 
     scene = load_scene(scene_path("cornellbox"), samples=8)
     cam = Camera.reference_default()
@@ -246,7 +246,7 @@ def test_tiled_noise_structure_matches_reference():
     import jax
     import jax.numpy as jnp
 
-    from tpu_pathtracer.render.noise import (
+    from pathtracer.render.noise import (
         _tile,
         _tile_lookup,
         bounce_uniforms,
@@ -311,7 +311,7 @@ def test_live_prefix_ladder_matches_full_width():
     # bitwise equality is not guaranteed — observed max delta ~5e-7).
     base = RenderConfig(
         samples_per_frame=1, max_path_length=6, intersector="bvh",
-        secondary_tile=256, live_ladder=0,
+        live_ladder=0,
     )
     cfg_l = base.replace(live_ladder=3)
     size = dict(width=128, height=96)
@@ -336,7 +336,7 @@ def test_prefix_sort_matches_full_width_sorts():
     # equivalence test above).
     base = RenderConfig(
         samples_per_frame=1, max_path_length=6, intersector="bvh",
-        secondary_tile=256, live_ladder=3,
+        live_ladder=3,
     )
     size = dict(width=128, height=96)
     r0 = Renderer("cornellbox", cfg=base, **size)
@@ -358,11 +358,11 @@ def test_prefix_sort_hero_and_fused():
     size = dict(width=128, height=96)
     hero = RenderConfig(
         samples_per_frame=1, max_path_length=5, spectrum_samples=8,
-        hero_wavelengths=4, secondary_tile=256, live_ladder=3,
+        hero_wavelengths=4, live_ladder=3,
     )
     fused = RenderConfig(
         samples_per_frame=2, fuse_samples=2, max_path_length=5,
-        intersector="bvh", secondary_tile=256, live_ladder=3,
+        intersector="bvh", live_ladder=3,
     )
     for base in (hero, fused):
         r0 = Renderer("cornellbox", cfg=base, **size)
@@ -380,7 +380,7 @@ def test_live_prefix_ladder_with_hero_bins():
     # scatter-add image assembly; compare against the full-width pipeline.
     base = RenderConfig(
         samples_per_frame=1, max_path_length=5, spectrum_samples=8,
-        hero_wavelengths=4, secondary_tile=256, live_ladder=0,
+        hero_wavelengths=4, live_ladder=0,
     )
     size = dict(width=128, height=96)
     r0 = Renderer("cornellbox", cfg=base, **size)
@@ -441,9 +441,9 @@ def test_row_tiles_bit_identical():
     path), bounding peak HBM."""
     import numpy as np
 
-    from tpu_pathtracer.config import RenderConfig
-    from tpu_pathtracer.render import init_state, render_frame_jit
-    from tpu_pathtracer.scene import load_scene, scene_path
+    from pathtracer.config import RenderConfig
+    from pathtracer.render import init_state, render_frame_jit
+    from pathtracer.scene import load_scene, scene_path
 
     scene = load_scene(scene_path("cornellbox"))
     base = RenderConfig(samples_per_frame=2, max_path_length=3)
@@ -473,7 +473,7 @@ def test_gather_sort_lowering_full_frame_identical():
     # tolerance needed: the same values flow through the same shade math).
     base = RenderConfig(
         samples_per_frame=1, max_path_length=6, intersector="bvh",
-        secondary_tile=256, live_ladder=2,
+        live_ladder=2,
     )
     size = dict(width=128, height=96)
     r0 = Renderer("cornellbox", cfg=base, **size)
@@ -496,7 +496,7 @@ def test_sort_bounce_skip_matches_default():
     # the idx carry init and the stale-rung reuse.
     base = RenderConfig(
         samples_per_frame=1, max_path_length=6, intersector="bvh",
-        secondary_tile=256, live_ladder=2,
+        live_ladder=2,
     )
     size = dict(width=128, height=96)
     r0 = Renderer("cornellbox", cfg=base, **size)
@@ -531,7 +531,7 @@ def test_gather_sort_lowering_with_prefix_sort():
     # differs across widths).
     base = RenderConfig(
         samples_per_frame=1, max_path_length=5, intersector="bvh",
-        secondary_tile=256, live_ladder=2,
+        live_ladder=2,
     )
     size = dict(width=96, height=64)
     r0 = Renderer("cornellbox", cfg=base, **size)
@@ -557,7 +557,7 @@ def test_cull_zero_nee_bit_identical():
     # (and therefore every fma grouping) is unchanged -> bitwise equality.
     base = RenderConfig(
         samples_per_frame=1, max_path_length=5, intersector="bvh",
-        secondary_tile=256, live_ladder=2, cull_zero_nee=False,
+        live_ladder=2, cull_zero_nee=False,
     )
     size = dict(width=96, height=64)
     r0 = Renderer("CornellBox-Water-plastic", cfg=base, **size)

@@ -3,9 +3,9 @@ import jax.numpy as jnp
 import pytest
 import numpy as np
 
-from tpu_pathtracer.ops.rng import uniforms
-from tpu_pathtracer.ops.tables import select_cols
-from tpu_pathtracer.render.order import choose_block, image_from_flat, make_order
+from pathtracer.ops.rng import uniforms
+from pathtracer.ops.tables import select_cols
+from pathtracer.render.order import choose_block, image_from_flat, make_order
 
 
 def test_order_roundtrip():
@@ -65,12 +65,12 @@ def test_exact_ray_count_matches_probe_at_same_resolution():
     """count_traced_rays_exact (in-pipeline counters) == the probe run at
     probe_scale=1 with the same intersector (both count alive path rays +
     live shadow rays per bounce)."""
-    from tpu_pathtracer.config import RenderConfig
-    from tpu_pathtracer.render.stats import (
+    from pathtracer.config import RenderConfig
+    from pathtracer.render.stats import (
         count_traced_rays,
         count_traced_rays_exact,
     )
-    from tpu_pathtracer.scene import load_scene, scene_path
+    from pathtracer.scene import load_scene, scene_path
 
     scene = load_scene(scene_path("cornellbox"))
     cfg = RenderConfig(samples_per_frame=1, max_path_length=4, intersector="brute")
@@ -92,9 +92,9 @@ def test_exact_ray_count_invariant_to_row_tiles_and_fusion():
     lanes are grouped — untiled, row-tiled, or sample-fused (the counter
     mirrors render_frame's tiling so HBM-bounded configs can be counted at
     all)."""
-    from tpu_pathtracer.config import RenderConfig
-    from tpu_pathtracer.render.stats import count_traced_rays_exact
-    from tpu_pathtracer.scene import load_scene, scene_path
+    from pathtracer.config import RenderConfig
+    from pathtracer.render.stats import count_traced_rays_exact
+    from pathtracer.scene import load_scene, scene_path
 
     scene = load_scene(scene_path("cornellbox"))
     base = dict(samples_per_frame=4, max_path_length=4, intersector="brute")
@@ -115,7 +115,7 @@ def test_r2_sampler_stratifies_and_integrates():
     magnitude below i.i.d. PRNG."""
     import jax.numpy as jnp
 
-    from tpu_pathtracer.ops.rng import uniforms, uniforms_r2
+    from pathtracer.ops.rng import uniforms, uniforms_r2
 
     pid = jnp.asarray([5, 77, 123456], dtype=jnp.uint32)
     us = np.stack([np.asarray(uniforms_r2(pid, f, 1, jnp.uint32(9), 6))
@@ -142,9 +142,9 @@ def test_r2_sampler_stratifies_and_integrates():
 def test_r2_sampler_render_deterministic_and_finite():
     """sampler='r2' through the full pipeline: deterministic, finite, and
     converging to the same image as PRNG (same estimator, different points)."""
-    from tpu_pathtracer.config import RenderConfig
-    from tpu_pathtracer.render import init_state, render_frame_jit
-    from tpu_pathtracer.scene import load_scene, scene_path
+    from pathtracer.config import RenderConfig
+    from pathtracer.render import init_state, render_frame_jit
+    from pathtracer.scene import load_scene, scene_path
 
     scene = load_scene(scene_path("cornellbox"))
     cfg = RenderConfig(samples_per_frame=2, max_path_length=3,

@@ -10,11 +10,11 @@ import os
 import numpy as np
 import pytest
 
-from tpu_pathtracer.config import RenderConfig
-from tpu_pathtracer.io.exr import read_exr
-from tpu_pathtracer.render import init_state, render_frame_jit
-from tpu_pathtracer.scene import golden_path, load_scene, scene_path
-from tpu_pathtracer.utils.compare import downsample, metrics
+from pathtracer.config import RenderConfig
+from pathtracer.io.exr import read_exr
+from pathtracer.render import init_state, render_frame_jit
+from pathtracer.scene import golden_path, load_scene, scene_path
+from pathtracer.utils.compare import downsample, metrics
 
 H, W = 75, 100  # 600/8, 800/8
 
@@ -84,8 +84,8 @@ def test_water_plastic_golden_sanity_band():
 
 @pytest.mark.slow
 def test_water_golden_tight_at_high_spp():
-    """TIGHT independent-renderer gate for CornellBox-Water: at spp256 on
-    TPU the MTL-decoded materials under the reference-quirk estimator
+    """TIGHT independent-renderer gate for CornellBox-Water: at spp256 the
+    MTL-decoded materials under the reference-quirk estimator
     match the Mitsuba golden at rel_mse 0.0085 / mean_ratio 1.045
     (scripts/mitsuba_parity_probe2.py) — the spp8 sanity band's 0.090 was
     noise, not material mismatch.  This test renders spp48 (CPU-feasible)

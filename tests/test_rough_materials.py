@@ -7,12 +7,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpu_pathtracer.config import RenderConfig
-from tpu_pathtracer.models import bsdf, ggx
-from tpu_pathtracer.render import init_state, render_frame_jit
-from tpu_pathtracer.scene import load_scene
-from tpu_pathtracer.scene.materials import classify
-from tpu_pathtracer.scene.objmtl import load_obj
+from pathtracer.config import RenderConfig
+from pathtracer.models import bsdf, ggx
+from pathtracer.render import init_state, render_frame_jit
+from pathtracer.scene import load_scene
+from pathtracer.scene.materials import classify
+from pathtracer.scene.objmtl import load_obj
 
 from test_envlight import _obj_scene  # noqa: E402  (shared scene builder)
 
@@ -51,7 +51,7 @@ def test_ggx_sample_eval_consistent(alpha):
 def test_ggx_smooth_limit_is_mirror():
     """At tiny roughness the sampled direction collapses to the mirror
     reflection with weight ~1."""
-    from tpu_pathtracer.core.math3d import dot, reflect
+    from pathtracer.core.math3d import dot, reflect
 
     w_i, n, u = _rand_views(4096, key=3)
     w_o, wgt, _, _ = ggx.sample_lobe(w_i, n, 0.02 * 0.02, u)
@@ -199,7 +199,7 @@ def test_rough_mis_select_p_invariance(ks, quirks):
             state = render_frame_jit(state, sc, cfg)
         return np.asarray(state.accum)
 
-    from tpu_pathtracer.scene import attach_env
+    from pathtracer.scene import attach_env
 
     base = run(scene)
     black = np.full((8, 16, 3), 1e-9, np.float32)
@@ -253,7 +253,7 @@ def test_rough_conductor_white_furnace_bound():
     only the multiple-scattering fraction at this roughness)."""
     import tempfile
 
-    from tpu_pathtracer.scene import attach_env
+    from pathtracer.scene import attach_env
 
     obj = """
 mtllib w.mtl
@@ -302,9 +302,9 @@ def test_rough_dielectric_transmits_with_refract_offset():
 
     import numpy as np
 
-    from tpu_pathtracer.config import RenderConfig
-    from tpu_pathtracer.render import init_state, render_frame_jit
-    from tpu_pathtracer.scene import load_scene
+    from pathtracer.config import RenderConfig
+    from pathtracer.render import init_state, render_frame_jit
+    from pathtracer.scene import load_scene
 
     obj = """
 mtllib rpane.mtl
@@ -340,7 +340,7 @@ Ks 0.3 0 1.5
     with open(f"{d}/rpane.mtl", "w") as fh:
         fh.write(mtl)
     scene = load_scene(f"{d}/rpane.obj", rough_materials=True)
-    from tpu_pathtracer.models.bsdf import MATERIAL_ROUGH_DIELECTRIC
+    from pathtracer.models.bsdf import MATERIAL_ROUGH_DIELECTRIC
 
     assert (np.asarray(scene.mat_type) == MATERIAL_ROUGH_DIELECTRIC).any()
 

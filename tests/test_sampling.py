@@ -2,8 +2,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from tpu_pathtracer.core import sampling
-from tpu_pathtracer.core.math3d import dot, length
+from pathtracer.core import sampling
+from pathtracer.core.math3d import dot, length
 
 
 def test_halton_reference_quirk():
@@ -103,7 +103,7 @@ def test_chi_square_cosine_hemisphere():
     equal-probability bins; azimuth is uniform."""
     import jax
 
-    from tpu_pathtracer.core.sampling import generate_diffuse_bounce
+    from pathtracer.core.sampling import generate_diffuse_bounce
 
     n = 200_000
     u = jax.random.uniform(jax.random.PRNGKey(3), (2, n))
@@ -128,8 +128,8 @@ def test_chi_square_light_selection():
     (reference table semantics, Renderer.mm:434-448)."""
     import jax
 
-    from tpu_pathtracer.core.sampling import select_light_index
-    from tpu_pathtracer.scene import load_scene, scene_path
+    from pathtracer.core.sampling import select_light_index
+    from pathtracer.scene import load_scene, scene_path
 
     scene = load_scene(scene_path("cornellbox"))
     pdf = np.asarray(scene.light_pdf)[:-1]  # drop sentinel

@@ -16,13 +16,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpu_pathtracer.accel import build_layout, native
-from tpu_pathtracer.config import RenderConfig
-from tpu_pathtracer.ops.intersect import intersect_brute
-from tpu_pathtracer.ops.traverse import intersect_bvh
-from tpu_pathtracer.renderer import Renderer
-from tpu_pathtracer.scene.objmtl import MtlRecord, ObjMesh
-from tpu_pathtracer.scene.scene import build_scene
+from pathtracer.accel import build_layout, native
+from pathtracer.config import RenderConfig
+from pathtracer.ops.intersect import intersect_brute
+from pathtracer.ops.traverse import intersect_bvh
+from pathtracer.renderer import Renderer
+from pathtracer.scene.objmtl import MtlRecord, ObjMesh
+from pathtracer.scene.scene import build_scene
 
 GRID = 256  # (GRID-1)^2 * 2 terrain triangles + 2 lamp triangles = 130,052
 
@@ -112,11 +112,11 @@ def test_large_scene_layout_invariants(big_scene):
         assert miss[0] == m
         # the 6-bit count / shifted first-row packing must round-trip at
         # 130K rows (first_tri needs 18 bits here)
-        meta = np.asarray(lay.nodes_meta)
-        assert (meta[:, 0] == miss).all()
-        assert ((meta[:, 1] & 63) == counts).all()
+        packed = np.asarray(lay.nodes)[:, 6:8].view(np.int32)
+        assert (packed[:, 0] == miss).all()
+        assert ((packed[:, 1] & 63) == counts).all()
         leaf = counts > 0
-        assert ((meta[:, 1] >> 6)[leaf] == first[leaf]).all()
+        assert ((packed[:, 1] >> 6)[leaf] == first[leaf]).all()
         # leaves cover every triangle exactly once
         total = counts[leaf].sum()
         assert total == lay.num_tris
@@ -147,77 +147,12 @@ def test_large_scene_traversal_matches_brute(big_scene):
         assert agree > 0.98, builder
 
 
-def test_vmem_budget_guard(big_scene):
-    # The Pallas kernels hold the whole BVH tables in VMEM; past the budget
-    # the renderer must fall back to the pure-JAX walker instead of failing
-    # Mosaic compilation.  The 130K-tri scene's tables exceed 12 MB; the
-    # 7K-tri bench scene's are well under it.
-    from tpu_pathtracer.render.wavefront import (
-        layout_vmem_bytes, pallas_tables_fit,
-    )
-    from tpu_pathtracer.scene import load_scene, scene_path
-
-    cfg = RenderConfig()
-    big_lay = build_layout(big_scene, leaf_size=16)
-    assert layout_vmem_bytes(big_lay) > 12 * 2 ** 20
-    assert not pallas_tables_fit(cfg, big_lay)
-    assert pallas_tables_fit(cfg.replace(vmem_table_budget_mb=1e9), big_lay)
-
-    small = load_scene(scene_path("CornellBox-Water-plastic"))
-    small_lay = build_layout(small, leaf_size=48)
-    assert pallas_tables_fit(cfg, small_lay)
-    # the occlusion layout participates in the worst-case check
-    assert not pallas_tables_fit(cfg, small_lay, big_lay)
-
-
-def test_hbm_tier_selection(big_scene, monkeypatch):
-    """Past the VMEM budget, hbm_tables='auto' must pick the HBM-streaming
-    Pallas kernel (node tables fit; triangle table streams), 'off' must keep
-    the round-3 pure-JAX fallback, and 'on' must force streaming even for
-    small scenes.  Backend pinned to a fake TPU; the factory is stubbed so
-    no Mosaic compilation happens on CPU."""
-    import tpu_pathtracer.render.wavefront as wf
-    from tpu_pathtracer.render.wavefront import layout_hbm_vmem_bytes
-    from tpu_pathtracer.scene import load_scene, scene_path
-
-    big_lay = build_layout(big_scene, leaf_size=16)
-    assert layout_hbm_vmem_bytes(big_lay) < 12 * 2 ** 20  # nodes fit
-
-    calls = []
-
-    def fake_factory(lay, **kw):
-        calls.append(kw)
-        return lambda *a, **k: None
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    import tpu_pathtracer.ops.pallas_traverse as pt
-
-    monkeypatch.setattr(pt, "make_pallas_intersector", fake_factory)
-
-    cfg = RenderConfig()
-    wf.make_intersector(big_scene, cfg, big_lay)
-    assert calls and calls[-1]["hbm"] is True
-
-    with pytest.warns(RuntimeWarning, match="pure-JAX"):
-        wf.make_intersector(big_scene, cfg.replace(hbm_tables="off"),
-                            big_lay)
-    assert len(calls) == 1  # fell back, factory not called
-
-    small = load_scene(scene_path("cornellbox"))
-    small_lay = build_layout(small, leaf_size=8)
-    wf.make_intersector(small, cfg, small_lay)
-    assert calls[-1]["hbm"] is False
-    wf.make_intersector(small, cfg.replace(hbm_tables="on"), small_lay)
-    assert calls[-1]["hbm"] is True
-
-
 @pytest.mark.slow
 def test_large_scene_renders(big_scene):
     # production wavefront path (sorted pipeline, NEE + MIS) on the 130K-tri
     # scene at a tiny frame: finite, lit, and the lamp lights the terrain
     cfg = RenderConfig(
         samples_per_frame=1, max_path_length=3, intersector="bvh",
-        use_pallas=False, secondary_tile=256,
     )
     r = Renderer(big_scene, width=48, height=32, cfg=cfg)
     r.run(2)

@@ -1,12 +1,12 @@
 import numpy as np
 
-from tpu_pathtracer.models.bsdf import (
+from pathtracer.models.bsdf import (
     MATERIAL_DIFFUSE,
     MATERIAL_MIRROR,
     MATERIAL_SMOOTH_DIELECTRIC,
     MATERIAL_SMOOTH_PLASTIC,
 )
-from tpu_pathtracer.scene import load_obj, load_scene, scene_path
+from pathtracer.scene import load_obj, load_scene, scene_path
 
 
 def test_cornellbox_counts():

@@ -6,11 +6,11 @@ import os
 import jax.numpy as jnp
 import numpy as np
 
-from tpu_pathtracer.config import RenderConfig
-from tpu_pathtracer.io.png import read_png, write_png
-from tpu_pathtracer.models.texture import resample_nearest, sample_bilinear
-from tpu_pathtracer.render import init_state, render_frame_jit
-from tpu_pathtracer.scene import load_scene
+from pathtracer.config import RenderConfig
+from pathtracer.io.png import read_png, write_png
+from pathtracer.models.texture import resample_nearest, sample_bilinear
+from pathtracer.render import init_state, render_frame_jit
+from pathtracer.scene import load_scene
 
 
 def test_png_roundtrip(tmp_path):

@@ -6,9 +6,9 @@ import urllib.request
 
 import numpy as np
 
-from tpu_pathtracer.config import RenderConfig
-from tpu_pathtracer.renderer import Renderer
-from tpu_pathtracer.viewer import ViewerServer
+from pathtracer.config import RenderConfig
+from pathtracer.renderer import Renderer
+from pathtracer.viewer import ViewerServer
 
 
 def _get(port, path):
